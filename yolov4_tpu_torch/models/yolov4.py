@@ -1,0 +1,98 @@
+"""YOLOv4 detector (reference yolo/model/yolov4.py:271-324).
+
+The model consumes NCHW float images in [0, 1] and returns:
+  * in eval mode: [B, N, 5+C] decoded float32 predictions in input pixels,
+    N = sum over scales of 3*f^2 (22743 at 608x608);
+  * in train mode: list of 3 per-scale dicts {layer_no, output, pred} for
+    the loss (see models/decode.py).
+
+``build_model(cfg, device=...)`` builds the module, draws the reference
+init from an explicit ``torch.Generator`` (on the CPU, so a seed gives the
+same weights on every device), and moves it to the device and its layers
+to ``MODEL.COMPUTE_DTYPE``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from yolov4_tpu_torch.models.darknet import Backbone
+from yolov4_tpu_torch.models.decode import decode_all, masked_anchors
+from yolov4_tpu_torch.models.head import Head
+from yolov4_tpu_torch.models.layers import init_weights
+from yolov4_tpu_torch.models.neck import Neck
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class YOLOv4(nn.Module):
+    def __init__(self, n_classes: int = 80,
+                 anchors: Sequence[Sequence[float]] = (
+                     (12, 16), (19, 36), (40, 28),
+                     (36, 75), (76, 55), (72, 146),
+                     (142, 110), (192, 243), (459, 401)),
+                 anchor_mask: Sequence[Sequence[int]] = (
+                     (0, 1, 2), (3, 4, 5), (6, 7, 8)),
+                 legacy_spp_pools: bool = True,
+                 width: float = 1.0, depth: float = 1.0):
+        super().__init__()
+        # per-scale grid-unit anchors, on the model's device so that decode
+        # copies nothing from the host; float32 whatever the layers' dtype
+        # (build_model casts only the layers), and not in the state_dict
+        for layer_no in range(3):
+            self.register_buffer(
+                f"anchors_grid{layer_no}",
+                torch.from_numpy(masked_anchors(anchors, anchor_mask,
+                                                layer_no)),
+                persistent=False)
+        self.backbone = Backbone(width=width, depth=depth)
+        c3, c4, c5 = (self.backbone.stage3.transition.out_ch,
+                      self.backbone.stage4.transition.out_ch,
+                      self.backbone.stage5.transition.out_ch)
+        self.neck = Neck(c3, c4, c5, width=width,
+                         legacy_pools=legacy_spp_pools)
+        self.head = Head(self.neck.fpn.module3[-1].out_ch,
+                         self.neck.pan.module1[-1].out_ch,
+                         self.neck.pan.module2[-1].out_ch,
+                         n_classes=n_classes, width=width)
+
+    def forward(self, x: torch.Tensor, decode: bool = True):
+        """x: [B, 3, H, W] float in [0, 1], H and W multiples of 32; cast
+        to the parameters' dtype. decode=False returns the three raw NCHW
+        head maps."""
+        x = x.to(self.backbone.stem.conv.weight.dtype)
+        raws = self.head(*self.neck(*self.backbone(x)))
+        if not decode:
+            return raws
+        grids = [getattr(self, f"anchors_grid{i}") for i in range(3)]
+        return decode_all(raws, grids, training=self.training)
+
+
+def build_model(cfg: Dict, device=None,
+                generator: Optional[torch.Generator] = None) -> YOLOv4:
+    """Construct the detector from a config dict (reference
+    model/build.py:19), initialise it from ``generator`` (a CPU
+    ``torch.Generator``; seed 0 when None) and move it to ``device``, its
+    layers in ``MODEL.COMPUTE_DTYPE``."""
+    model_cfg = cfg["MODEL"]
+    if model_cfg["TYPE"] != "YOLOv4":
+        raise ValueError(f"unsupported MODEL.TYPE {model_cfg['TYPE']!r}")
+    model = YOLOv4(
+        n_classes=model_cfg["N_CLASSES"],
+        anchors=model_cfg["ANCHORS"],
+        anchor_mask=model_cfg["ANCHOR_MASK"],
+        legacy_spp_pools=model_cfg.get("SPP_LEGACY_POOLS", True),
+        width=float(model_cfg.get("WIDTH", 1.0)),
+        depth=float(model_cfg.get("DEPTH", 1.0)),
+    )
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_weights(model, generator)
+    dtype = DTYPES[model_cfg.get("COMPUTE_DTYPE", "bfloat16")]
+    model.to(device=device)
+    for layers in (model.backbone, model.neck, model.head):
+        layers.to(dtype=dtype)
+    return model
