@@ -9,7 +9,8 @@ CUDA toolkit):
 Phases; any failure ends the run with a non-zero exit code and no result
 line:
 
-  1. build   — compile yolov4_tpu_torch/csrc/nms.cu with nvcc for sm_90a.
+  1. build   — compile yolov4_tpu_torch/csrc/nms.cu and csrc/csp.cu with
+               nvcc for sm_90a, one nvcc each, started together.
   2. kernel  — the greedy-NMS kernel (K1) against its plain PyTorch version
                on the card: keep masks bit-equal on the cases of
                tests/test_nms_pallas.py, a ragged K, and the main-path shape
@@ -25,6 +26,19 @@ line:
                within atol = rtol = 1e-3.
   5. detect  — ``python -m yolov4_tpu_torch.detect``'s entry point on four
                synthetic JPEGs writes four drawn images.
+  6. k2      — the fused CSP stage kernel (K2) against its plain version at
+               the three stage shapes of 608/b16 and two ragged shapes, in
+               float32 (TF32 off) and bfloat16 (tolerances at K2_TOL_*).
+  7. fused   — the full-width 608/b16 bfloat16 forward with PALLAS_CSP on,
+               BN re-drawn: K2 launches 3 times, its decoded predictions
+               agree with the default path's (FUSED_TOL_*); each stage body
+               on its real input: K2 against its plain version, timed beside
+               the plain version and the default layer-by-layer body; the
+               Predictor with PALLAS_CSP on, timed as in phase 3.
+  8. val     — ``python -m yolov4_tpu_torch.val``'s entry point at full
+               width with PALLAS_CSP on, batch 16, conf 0.001, on a
+               synthetic COCO val2017 of 32 images: finite AP in [0, 1],
+               AP50 >= AP, K1 once and K2 three times per batch.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -37,6 +51,8 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -47,12 +63,33 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 PEAK_F32_OPS = 67e12
+PEAK_BF16_OPS = 989e12  # dense tensor cores
 PEAK_BYTES = 3.35e12
 # float32 operations of the kernel's pair test (Pallas formula): 2 min,
 # 2 max, 2 sub, 2 clamp for iw/ih; 1 mul; 1 add + 1 sub + 1 clamp for the
 # union; 1 div; 1 compare
 OPS_PER_PAIR = 14
 OPS_PER_BOX = 3  # area
+
+# K2 against its plain version: max |got - want| / (1 + |want|). float32
+# (TF32 off) differs only in summation order; bfloat16 rounds at the same
+# points, but where the two float32 sums straddle a rounding boundary an
+# intermediate differs by one ulp, and stage 3's chain of 8 residual blocks
+# carries such differences on (a few ulps at the output).
+K2_TOL_F32 = 1e-4
+K2_TOL_BF16 = 0.05
+# ... and the bfloat16 kernel's mean |error| against a float32 evaluation of
+# the same function may exceed the plain bfloat16 version's by this factor
+K2_TOL_BF16_VS_F32 = 1.25
+# The fused bfloat16 forward against the default one, decoded: both round to
+# bfloat16 at different points (the default path rounds conv outputs, BN and
+# each Mish step; K2 keeps them in float32), so each is held against a
+# float32 forward of the same weights: the fused path's mean |error| on the
+# scores and on the boxes may exceed the default path's by this factor.
+FUSED_TOL_VS_F32 = 1.25
+STAGE_SHAPES = ((16, 304, 304, 64, 0), (16, 152, 152, 128, 2),
+                (16, 76, 76, 256, 8))
+RAGGED_SHAPES = ((2, 9, 13, 16, 0), (3, 11, 7, 24, 3))
 
 
 def log(msg: str) -> None:
@@ -232,17 +269,24 @@ def phase_main(cfg, nms_cuda, postprocess_mod, Predictor, report):
     return captured, launches
 
 
-def phase_device_vs_cpu(cfg_cls, build_model, report):
-    """WIDTH 0.25 float32 on the card (TF32 off) against the CPU."""
-    cfg = cfg_cls.from_dict({
-        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
-        "TEST": {"IMGSIZE": 320}})
-    model = build_model(cfg, device="cpu",
-                        generator=torch.Generator().manual_seed(1))
-    # BN re-drawn away from the reference's N(0, 0.01) scales, which would
-    # decay every activation to ~0 and make the comparison vacuous
-    rng = np.random.default_rng(1)
-    sd = model.state_dict()
+@contextmanager
+def tf32_off():
+    """Full float32 convolutions and matrix products inside the block."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def redraw_bn(sd, rng):
+    """BN re-drawn away from the reference's N(0, 0.01) scales, which would
+    decay every activation to ~0 and make a comparison vacuous; conv biases
+    (the heads' outputs) spread over U(-4, 1)."""
     for key, val in sd.items():
         if key.endswith("norm.weight") or key.endswith("running_var"):
             sd[key] = torch.from_numpy(rng.uniform(0.5, 0.8, val.shape)
@@ -253,22 +297,27 @@ def phase_device_vs_cpu(cfg_cls, build_model, report):
         elif key.endswith("conv.bias"):
             sd[key] = torch.from_numpy(rng.uniform(-4, 1, val.shape)
                                        .astype(np.float32))
+    return sd
+
+
+def phase_device_vs_cpu(cfg_cls, build_model, report):
+    """WIDTH 0.25 float32 on the card (TF32 off) against the CPU."""
+    cfg = cfg_cls.from_dict({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "TEST": {"IMGSIZE": 320}})
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(1)
+    sd = redraw_bn(model.state_dict(), rng)
     model.load_state_dict(sd)
     model.eval()
     gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(sd)
     gpu.eval()
     x = torch.from_numpy(rng.random((2, 3, 320, 320), dtype=np.float32))
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.inference_mode():
-            want = model(x).numpy()
-            got = gpu(x.cuda()).cpu().numpy()
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    with tf32_off(), torch.inference_mode():
+        want = model(x).numpy()
+        got = gpu(x.cuda()).cpu().numpy()
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
     err = float(np.abs(got - want).max())
     log(f"[device] WIDTH 0.25 f32 at 320: card vs CPU decoded "
@@ -313,26 +362,316 @@ def phase_detect(detect_mod, nms_cuda, report):
     report["detect_images"] = len(written)
 
 
+def build_kernels(modules, report):
+    """Build every kernel library at once, one nvcc each."""
+    t0 = time.time()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        libs = list(pool.map(lambda m: m.build(), modules))
+    report["build_s"] = time.time() - t0
+    log(f"[build] {', '.join(p.name for p in libs)} in "
+        f"{report['build_s']:.1f}s")
+
+
+def k2_shapes(c, nb):
+    """(ci, co, k) of each conv of a stage body, by folded-dict name."""
+    c2 = c // 2
+    if nb == 0:
+        return {"part1": (c, c, 1), "part2_1_1": (c, c, 1),
+                "part2_1_2_0": (c, c2, 1), "part2_1_2_1": (c2, c, 3),
+                "part2_2": (c, c, 1), "transition": (2 * c, c, 1)}
+    out = {"part1": (c, c2, 1), "part2_0": (c, c2, 1)}
+    for i in range(nb):
+        out[f"block{i}_0"] = (c2, c2, 1)
+        out[f"block{i}_1"] = (c2, c2, 3)
+    out.update(part2_2=(c2, c2, 1), transition=(c, c, 1))
+    return out
+
+
+def k2_case(seed, b, h, w, c, nb):
+    """x [B, H, W, C] and folded weights on the card, drawn from a seed
+    and scaled so that activations stay O(1) through the stage."""
+    g = torch.Generator().manual_seed(seed)
+    folded = {name: ((torch.randn((k, k, ci, co), generator=g)
+                      / (k * k * ci) ** 0.5).cuda(),
+                     (torch.rand(co, generator=g) - 0.5).cuda())
+              for name, (ci, co, k) in k2_shapes(c, nb).items()}
+    x = torch.randn((b, h, w, c), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    return x, folded
+
+
+def k2_bound(x, packed):
+    """(bound_ms, bound_by) of one stage body on NHWC x: every conv's
+    multiply-adds at every pixel over the peak of x's type, against x, the
+    weights and the output moved once."""
+    b, h, w, _ = x.shape
+    ops = 2 * b * h * w * sum(t.shape[0] * t.shape[1] for t in packed[0::2])
+    nbytes = (2 * x.numel() * x.element_size()
+              + sum(t.numel() * t.element_size() for t in packed))
+    peak = PEAK_BF16_OPS if x.dtype == torch.bfloat16 else PEAK_F32_OPS
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_k2(csp_cuda, plain, x, folded, nb, packed, label):
+    """K2 on x against its plain version, within K2_TOL_*; returns the
+    errors. For bfloat16 also the share of elements more than one ulp
+    apart, and both versions' mean |error| against float32."""
+    got = csp_cuda.fused_csp_stage_cuda(x, folded, nb, packed)
+    torch.cuda.synchronize()
+    if (got.shape != x.shape or got.dtype != x.dtype
+            or not bool(torch.isfinite(got).all())):
+        raise AssertionError(f"K2 {label}: {got.dtype} {tuple(got.shape)}, "
+                             f"finite {bool(torch.isfinite(got).all())}")
+    want = plain(x, folded, nb).float()
+    d = (got.float() - want).abs()
+    res = dict(max_abs_err=float(d.max()),
+               max_rel_err=float((d / (1 + want.abs())).max()))
+    if x.dtype == torch.float32:
+        ok = res["max_rel_err"] <= K2_TOL_F32
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -126))) - 7)
+        res["ulp_share"] = float((d > ulp).float().mean())
+        ref = plain(x.float(), folded, nb)
+        res["mean_err_vs_f32"] = float((got.float() - ref).abs().mean())
+        res["plain_mean_err_vs_f32"] = float((want - ref).abs().mean())
+        ok = (res["max_rel_err"] <= K2_TOL_BF16
+              and res["mean_err_vs_f32"]
+              <= K2_TOL_BF16_VS_F32 * res["plain_mean_err_vs_f32"])
+    log(f"[k2] {label}: " + ", ".join(f"{k} {v:.4g}" for k, v in res.items()))
+    if not ok:
+        raise AssertionError(f"K2 {label} outside its tolerance: {res}")
+    return res
+
+
+def phase_k2_cases(csp_cuda, plain, report):
+    """K2 against its plain version on seeded inputs, float32 and
+    bfloat16, at the stage shapes of 608/b16 and two ragged shapes."""
+    rows = []
+    with tf32_off(), torch.inference_mode():
+        for i, (b, h, w, c, nb) in enumerate(STAGE_SHAPES + RAGGED_SHAPES):
+            x, folded = k2_case(i, b, h, w, c, nb)
+            for dt in (torch.float32, torch.bfloat16):
+                res = check_k2(csp_cuda, plain, x.to(dt), folded, nb, None,
+                               f"{str(dt)[6:]} {(b, h, w, c)} nb={nb}")
+                rows.append(dict(shape=[b, h, w, c], num_blocks=nb,
+                                 dtype=str(dt)[6:], **res))
+            del x, folded
+            torch.cuda.empty_cache()
+    report["k2_cases"] = rows
+
+
+def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain, report):
+    """The full-width 608/b16 bfloat16 forward with PALLAS_CSP on against
+    the default path and a float32 forward of the same weights; each of
+    stages 1-3 on its real input; then the Predictor with PALLAS_CSP on.
+    Returns the per-stage K2 rows."""
+    cfg = cfg_cls.from_dict({"MODEL": {"PALLAS_CSP": True}})
+    batch, size = 16, cfg["TEST"]["IMGSIZE"]
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(3))
+    model.load_state_dict(redraw_bn(model.state_dict(),
+                                    np.random.default_rng(3)))
+    model = model.eval().to(memory_format=torch.channels_last)
+    bb = model.backbone
+    stages = (bb.stage1, bb.stage2, bb.stage3)
+    x = torch.rand((batch, 3, size, size), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(4))
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        csp_cuda.fused_csp_stage_cuda.launches = 0
+        fused = model(x)
+        torch.cuda.synchronize()
+        launches = csp_cuda.fused_csp_stage_cuda.launches
+        if launches != 3:
+            raise AssertionError(f"K2 launched {launches} times in one "
+                                 "forward")
+        fused_ms = cuda_ms(lambda: model(x), iters=10)
+        for stage in stages:
+            stage.fused = False
+        default = model(x)
+        default_ms = cuda_ms(lambda: model(x), iters=10)
+        for stage in stages:
+            stage.fused = True
+    ref = build_model(cfg_cls.from_dict({"MODEL": {"COMPUTE_DTYPE":
+                                                   "float32"}}),
+                      device="cuda")
+    ref.load_state_dict(model.state_dict())
+    ref = ref.eval().to(memory_format=torch.channels_last)
+    with tf32_off(), torch.inference_mode():
+        want = ref(x)
+    del ref
+    errs = {}
+    for name, y in (("fused", fused), ("default", default)):
+        if y.shape != want.shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name} forward: {tuple(y.shape)}, finite "
+                                 f"{bool(torch.isfinite(y).all())}")
+        d = (y - want).abs()
+        errs[name] = dict(score_mean=float(d[..., 4:].mean()),
+                          score_max=float(d[..., 4:].max()),
+                          box_mean_px=float(d[..., :4].mean()),
+                          box_max_px=float(d[..., :4].max()))
+    d = (fused - default).abs()
+    direct = dict(score_mean=float(d[..., 4:].mean()),
+                  score_max=float(d[..., 4:].max()),
+                  box_mean_px=float(d[..., :4].mean()),
+                  box_max_px=float(d[..., :4].max()),
+                  score_std=float(want[..., 4:].std()))
+    log(f"[fused] 608/b16 bf16, BN re-drawn: K2 launches {launches} per "
+        f"forward; vs float32: fused {errs['fused']}, default "
+        f"{errs['default']}; fused vs default {direct}")
+    for key in ("score_mean", "box_mean_px"):
+        if errs["fused"][key] > FUSED_TOL_VS_F32 * errs["default"][key]:
+            raise AssertionError(f"fused forward {key} error "
+                                 f"{errs['fused'][key]} vs the default "
+                                 f"path's {errs['default'][key]}")
+    log(f"[fused] forward+decode ms per batch of {batch}: PALLAS_CSP "
+        f"{fused_ms:.3f}, default {default_ms:.3f}")
+    del fused, default, want
+
+    per_stage = []
+    with tf32_off(), torch.inference_mode():
+        h = bb.stem(x.to(torch.bfloat16))
+        for name, stage in zip(("stage1", "stage2", "stage3"), stages):
+            xb = stage.base(h)
+            nhwc = xb.permute(0, 2, 3, 1).contiguous()
+            nb = stage.num_blocks
+            folded, packed = stage.folded_weights(xb)
+            res = check_k2(csp_cuda, plain, nhwc, folded, nb, packed,
+                           f"{name} main-path input")
+            ms = cuda_ms(lambda: csp_cuda.fused_csp_stage_cuda(
+                nhwc, folded, nb, packed))
+            plain_ms = cuda_ms(lambda: plain(nhwc, folded, nb), iters=5)
+            body_ms = cuda_ms(lambda: stage.body(xb))
+            bound_ms, bound_by = k2_bound(nhwc, packed)
+            per_stage.append(dict(
+                stage=name, shape=list(nhwc.shape), num_blocks=nb,
+                conv_launches=len(packed) // 2, ms=ms, plain_ms=plain_ms,
+                default_body_ms=body_ms, bound_ms=bound_ms,
+                bound_by=bound_by, **res))
+            log(f"[fused] {name} {tuple(nhwc.shape)} nb={nb}: K2 {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, default body {body_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms by {bound_by}")
+            h = csp_cuda.fused_csp_stage_cuda(nhwc, folded, nb,
+                                              packed).permute(0, 3, 1, 2)
+    del model
+    torch.cuda.empty_cache()
+
+    # the detection path of phase 3 with PALLAS_CSP on, measured alike
+    pred = Predictor(cfg, img_size=size, batch_size=batch, device="cuda")
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+              for _ in range(4)]
+    pred.warmup()
+    pred(images[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for imgs in images:
+        pred(imgs)
+    e2e_img_s = batch * len(images) / (time.perf_counter() - t0)
+    xin = pred.upload(images[0])
+    run_ms = cuda_ms(lambda: pred.run(xin), iters=10)
+    log(f"[fused] Predictor with PALLAS_CSP: normalize+fwd+NMS {run_ms:.3f} "
+        f"ms per batch ({batch * 1e3 / run_ms:.1f} img/s), e2e "
+        f"{e2e_img_s:.2f} img/s (host clock, upload to fetch)")
+    report["fused"] = dict(launches=launches, fwd_ms=fused_ms,
+                           default_fwd_ms=default_ms, run_ms=run_ms,
+                           device_img_s=batch * 1e3 / run_ms,
+                           e2e_img_s=e2e_img_s, vs_f32=errs,
+                           vs_default=direct, stages=per_stage)
+    del pred
+    torch.cuda.empty_cache()
+    return per_stage
+
+
+def write_val2017(work, coco_ids, n_images=32):
+    """A synthetic COCO val2017 of mixed-size JPEGs with filled boxes."""
+    import cv2
+    img_dir = work / "images" / "val2017"
+    img_dir.mkdir(parents=True)
+    (work / "annotations").mkdir()
+    rng = np.random.default_rng(7)
+    sizes = ((480, 640), (640, 480), (375, 500), (608, 608), (427, 640),
+             (720, 1280), (333, 500), (512, 384))
+    images, anns = [], []
+    for i in range(n_images):
+        h, w = sizes[i % len(sizes)]
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for _ in range(int(rng.integers(1, 5))):
+            bw, bh = rng.uniform(20, w / 2), rng.uniform(20, h / 2)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            cv2.rectangle(img, (int(x0), int(y0)), (int(x0 + bw),
+                                                    int(y0 + bh)),
+                          tuple(int(v) for v in rng.integers(0, 256, 3)), -1)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(coco_ids[rng.integers(0, 80)]),
+                         "bbox": [x0, y0, bw, bh], "area": bw * bh,
+                         "iscrowd": 0})
+        name = f"{i + 1:012}.jpg"
+        if not cv2.imwrite(str(img_dir / name), img):
+            raise OSError("cannot write a test JPEG")
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+    with open(work / "annotations" / "instances_val2017.json", "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c, "name": str(c)}
+                                  for c in coco_ids]}, f)
+
+
+def phase_val(val_mod, coco_ids, nms_cuda, csp_cuda, report):
+    """``python -m yolov4_tpu_torch.val`` at full width with PALLAS_CSP on;
+    returns K2's launches in it."""
+    work = ROOT / "runs" / "chip_smoke_val"
+    shutil.rmtree(work, ignore_errors=True)
+    n_images, batch = 32, 16
+    write_val2017(work, coco_ids, n_images)
+    cfg_path = work / "val.cfg"
+    cfg_path.write_text("MODEL:\n  PALLAS_CSP: true\n")
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    t0 = time.time()
+    ap, ap50 = val_mod.main([str(work), "-c", str(cfg_path), "--batch-size",
+                             str(batch), "--conf-thre", "0.001"])
+    seconds = time.time() - t0
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    n_batches = n_images // batch
+    if not (np.isfinite(ap) and np.isfinite(ap50) and 0.0 <= ap <= ap50 <= 1.0):
+        raise AssertionError(f"val: AP {ap}, AP50 {ap50}")
+    if k1 != n_batches or k2 != 3 * n_batches:
+        raise AssertionError(f"val: K1 launched {k1}, K2 {k2} times in "
+                             f"{n_batches} batches")
+    log(f"[val] {n_images} images at full width, PALLAS_CSP on, batch "
+        f"{batch}, conf 0.001: AP {ap:.5f}, AP50 {ap50:.5f}; K1 {k1}, K2 {k2} "
+        f"launches in {n_batches} batches; {seconds:.1f}s")
+    report["val"] = dict(images=n_images, batches=n_batches, ap=ap, ap50=ap50,
+                         k1_launches=k1, k2_launches=k2, seconds=seconds)
+    shutil.rmtree(work, ignore_errors=True)
+    return k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
     from yolov4_tpu_torch import detect as detect_mod
+    from yolov4_tpu_torch import val as val_mod
     from yolov4_tpu_torch.config import Config, load_config
+    from yolov4_tpu_torch.data.coco import COCO_CLASS_IDS
     from yolov4_tpu_torch.engine.predictor import Predictor
     from yolov4_tpu_torch.models import build_model
-    from yolov4_tpu_torch.ops import nms_cuda
+    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
     from yolov4_tpu_torch.ops import postprocess as postprocess_mod
+    from yolov4_tpu_torch.ops.csp import fused_csp_stage_plain
     from yolov4_tpu_torch.ops.nms import greedy_nms_mask
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     report = {}
-    t0 = time.time()
-    lib = nms_cuda.build()
-    report["build_s"] = time.time() - t0
-    log(f"[build] {lib.name} in {report['build_s']:.1f}s")
+    build_kernels([nms_cuda, csp_cuda], report)
 
     err = phase_kernel_cases(nms_cuda, greedy_nms_mask)
 
@@ -357,6 +696,11 @@ def main() -> int:
 
     phase_device_vs_cpu(Config, build_model, report)
     phase_detect(detect_mod, nms_cuda, report)
+    phase_k2_cases(csp_cuda, fused_csp_stage_plain, report)
+    stages = phase_fused(Config, build_model, Predictor, csp_cuda,
+                         fused_csp_stage_plain, report)
+    k2_launches = phase_val(val_mod, COCO_CLASS_IDS, nms_cuda, csp_cuda,
+                            report)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,6 +718,25 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        # one entry for the three stage bodies of a forward: times and
+        # bounds are their sums, per_stage holds each
+        "name": "fused_csp_stage",
+        "route": "cuda",
+        "source": "yolov4_tpu_torch/csrc/csp.cu",
+        "replaces": "yolov4_tpu/ops/csp_pallas.py:344",
+        "launches": k2_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in stages),
+        "ms": sum(r["ms"] for r in stages),
+        "plain_ms": sum(r["plain_ms"] for r in stages),
+        "bound_ms": sum(r["bound_ms"] for r in stages),
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in stages) else "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a CSP stage body; "
+                        "default_body_ms is the layer-by-layer path",
+        "default_body_ms": sum(r["default_body_ms"] for r in stages),
+        "per_stage": stages,
     }]}
     print(json.dumps({"report": report}))
     print(smi)

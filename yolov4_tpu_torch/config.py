@@ -4,11 +4,16 @@ YAML config files with the reference's section/key layout (``config/*.cfg``
 — YAML despite the extension). A config is a plain nested dict wrapped with
 defaulting, validation and ``cfg['TEST']['IMGSIZE']`` access.
 
+``MODEL.PALLAS_CSP`` (false, true or "auto" = on for CUDA tensors) is live:
+it sends the eval forward of CSP stages 1-3 through the fused stage kernel
+K2 (ops/csp_cuda.py), with BatchNorm folded into the convs; the default
+stays false.
+
 Keys that only steer TPU lowerings (``MODEL.S2D_STEM``, ``MODEL.WPACK``,
-``MODEL.SPLIT_HEAD``, ``MODEL.PALLAS_CSP``, ``MODEL.QUANT*``,
-``TEST.S2D_WIRE``, ``TEST.APPROX_TOPK``) are accepted and validated so that
-every config file of the JAX package loads unchanged; the port runs the
-plain path they all reduce to and ignores them.
+``MODEL.SPLIT_HEAD``, ``MODEL.QUANT*``, ``TEST.S2D_WIRE``,
+``TEST.APPROX_TOPK``) are accepted and validated so that every config file
+of the JAX package loads unchanged; the port runs the plain path they all
+reduce to and ignores them.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
         "SPP_LEGACY_POOLS": True,
         "EXACT_POOL_GRAD": False,
         "COMPUTE_DTYPE": "bfloat16",
-        # TPU lowerings of the same math; no-ops in the port
+        # eval-time fused CSP stages 1-3 (K2): false | true | "auto"
         "PALLAS_CSP": False,
+        # TPU lowerings of the same math; no-ops in the port
         "WPACK": "auto",
         "SPLIT_HEAD": "auto",
         "QUANT": "none",
@@ -176,6 +182,9 @@ class Config(dict):
         if model.get("COMPUTE_DTYPE", "bfloat16") not in ("float32", "bfloat16"):
             raise ValueError("MODEL.COMPUTE_DTYPE must be 'float32' or "
                              f"'bfloat16': {model['COMPUTE_DTYPE']}")
+        if model.get("PALLAS_CSP", False) not in (False, True, "auto"):
+            raise ValueError("MODEL.PALLAS_CSP must be false, true or "
+                             f"'auto': {model['PALLAS_CSP']!r}")
         box_loss = self["CRITERION"].get("BOX_LOSS", "mse")
         if box_loss not in ("mse", "iou", "giou", "diou", "ciou"):
             raise ValueError("CRITERION.BOX_LOSS must be one of "

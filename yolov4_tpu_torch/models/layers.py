@@ -1,5 +1,10 @@
-"""Building-block layers (NCHW), the plain path of the JAX package's
+"""Building-block layers (NCHW), ported from the JAX package's
 models/layers.py: Mish, ConvBNAct, ResBlock, CSPDownSample0, CSPDownSample.
+
+A CSP stage built with ``fused`` runs its eval forward's body (everything
+after the base conv) through the K2 wrapper (ops/csp_cuda.py) with BN
+folded into the convs, as the JAX package's ``MODEL.PALLAS_CSP`` path
+does: the Hopper kernel on a CUDA tensor, its plain version on a CPU one.
 
 Module attribute names follow the reference torch tree (darknet/darknet.py:
 14-138), so ``state_dict()`` keys are the reference's keys
@@ -13,11 +18,15 @@ BatchNorm scale ~ N(0, 0.01^2), BatchNorm bias zero.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolov4_tpu_torch.ops.csp import fold_conv_bn, pack_weights
+from yolov4_tpu_torch.ops.csp_cuda import (fused_csp_stage_cuda,
+                                           fused_csp_supported)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -94,13 +103,76 @@ class ResBlock(nn.Module):
         return x
 
 
-class CSPDownSample0(nn.Module):
+class _CSPStage(nn.Module):
+    """A CSP stage: strided base conv, then the stage body. ``fused``
+    (False, True, or "auto" = on for CUDA tensors) sends the body of an
+    eval forward without autograd through K2, with the BN-folded weights
+    cached until one of the stage's parameters or buffers changes
+    (``load_state_dict``, a training step's BN statistics, ``.to``). The
+    state_dict is the same either way."""
+
+    num_blocks: int
+
+    def __init__(self, fused: Union[bool, str], act: str, shortcut: bool):
+        super().__init__()
+        if fused not in (False, True, "auto"):
+            raise ValueError(f"fused must be False, True or 'auto': {fused!r}")
+        self.fused = fused
+        self.fusable = act == "mish" and shortcut
+        self._fold_cache = None
+
+    def foldable(self) -> Dict[str, "ConvBNAct"]:
+        """The body's ConvBNActs under their folded-dict names
+        (ops/csp.stage_names)."""
+        raise NotImplementedError
+
+    def body(self, x: torch.Tensor) -> torch.Tensor:
+        """The stage body on the base conv's output, layer by layer."""
+        raise NotImplementedError
+
+    def folded_weights(self, x: torch.Tensor):
+        """(folded, packed) for x's device and dtype; packed (the kernel's
+        layout) only for a CUDA tensor."""
+        key = (x.device, x.dtype) + tuple(
+            (t.data_ptr(), t._version)
+            for t in (*self.parameters(), *self.buffers()))
+        if self._fold_cache is None or self._fold_cache[0] != key:
+            folded = {name: fold_conv_bn(m)
+                      for name, m in self.foldable().items()}
+            packed = (pack_weights(folded, self.num_blocks, x.dtype)
+                      if x.device.type == "cuda" else None)
+            self._fold_cache = (key, folded, packed)
+        return self._fold_cache[1:]
+
+    def _use_fused(self, x: torch.Tensor) -> bool:
+        on = self.fused is True or (self.fused == "auto" and x.is_cuda)
+        return (on and self.fusable and not self.training
+                and not torch.is_grad_enabled()
+                and fused_csp_supported((x.shape[0], x.shape[2], x.shape[3],
+                                         x.shape[1]), self.num_blocks,
+                                        x.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.base(x)
+        if not self._use_fused(x):
+            return self.body(x)
+        # a channels-last NCHW tensor is already NHWC in memory: no copy
+        nhwc = x.permute(0, 2, 3, 1).contiguous()
+        folded, packed = self.folded_weights(x)
+        out = fused_csp_stage_cuda(nhwc, folded, self.num_blocks, packed)
+        return out.permute(0, 3, 1, 2)
+
+
+class CSPDownSample0(_CSPStage):
     """First CSP stage with its non-standard split (reference
     darknet.py:84-113)."""
 
+    num_blocks = 0
+
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 2, act: str = "mish"):
-        super().__init__()
+                 stride: int = 2, act: str = "mish",
+                 fused: Union[bool, str] = False):
+        super().__init__(fused, act, shortcut=True)
         c = out_ch
         self.base = ConvBNAct(in_ch, c, kernel_size, stride, act=act)
         self.part1 = ConvBNAct(c, c, 1, act=act)
@@ -110,21 +182,27 @@ class CSPDownSample0(nn.Module):
         self.part2_2 = ConvBNAct(c, c, 1, act=act)
         self.transition = ConvBNAct(2 * c, c, 1, act=act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.base(x)
+    def foldable(self) -> Dict[str, ConvBNAct]:
+        return {"part1": self.part1, "part2_1_1": self.part2_1_1,
+                "part2_1_2_0": self.part2_1_2[0],
+                "part2_1_2_1": self.part2_1_2[1],
+                "part2_2": self.part2_2, "transition": self.transition}
+
+    def body(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.part1(x)
         x2_1_1 = self.part2_1_1(x)
         x2 = self.part2_2(x2_1_1 + self.part2_1_2(x2_1_1))
         return self.transition(torch.cat([x2, x1], dim=1))
 
 
-class CSPDownSample(nn.Module):
+class CSPDownSample(_CSPStage):
     """Generic CSP downsampling stage (reference darknet.py:116-138)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 2, num_blocks: int = 1, shortcut: bool = True,
-                 act: str = "mish"):
-        super().__init__()
+                 act: str = "mish", fused: Union[bool, str] = False):
+        super().__init__(fused, act, shortcut)
+        self.num_blocks = num_blocks
         c, c2 = out_ch, out_ch // 2
         self.base = ConvBNAct(in_ch, c, kernel_size, stride, act=act)
         self.part1 = ConvBNAct(c, c2, 1, act=act)
@@ -134,8 +212,14 @@ class CSPDownSample(nn.Module):
             ConvBNAct(c2, c2, 1, act=act))
         self.transition = ConvBNAct(2 * c2, c, 1, act=act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.base(x)
+    def foldable(self) -> Dict[str, ConvBNAct]:
+        out = {"part1": self.part1, "part2_0": self.part2[0]}
+        for i, pair in enumerate(self.part2[1].module_list):
+            out[f"block{i}_0"], out[f"block{i}_1"] = pair[0], pair[1]
+        out.update(part2_2=self.part2[2], transition=self.transition)
+        return out
+
+    def body(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self.part1(x)
         x2 = self.part2(x)
         return self.transition(torch.cat([x2, x1], dim=1))

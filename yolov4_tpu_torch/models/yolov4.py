@@ -9,12 +9,13 @@ The model consumes NCHW float images in [0, 1] and returns:
 ``build_model(cfg, device=...)`` builds the module, draws the reference
 init from an explicit ``torch.Generator`` (on the CPU, so a seed gives the
 same weights on every device), and moves it to the device and its layers
-to ``MODEL.COMPUTE_DTYPE``.
+to ``MODEL.COMPUTE_DTYPE``. ``MODEL.PALLAS_CSP`` sends the eval forward of
+CSP stages 1-3 through K2 (see darknet.Backbone).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -37,7 +38,8 @@ class YOLOv4(nn.Module):
                  anchor_mask: Sequence[Sequence[int]] = (
                      (0, 1, 2), (3, 4, 5), (6, 7, 8)),
                  legacy_spp_pools: bool = True,
-                 width: float = 1.0, depth: float = 1.0):
+                 width: float = 1.0, depth: float = 1.0,
+                 pallas_csp: Union[bool, str] = False):
         super().__init__()
         # per-scale grid-unit anchors, on the model's device so that decode
         # copies nothing from the host; float32 whatever the layers' dtype
@@ -48,7 +50,8 @@ class YOLOv4(nn.Module):
                 torch.from_numpy(masked_anchors(anchors, anchor_mask,
                                                 layer_no)),
                 persistent=False)
-        self.backbone = Backbone(width=width, depth=depth)
+        self.backbone = Backbone(width=width, depth=depth,
+                                 pallas_csp=pallas_csp)
         c3, c4, c5 = (self.backbone.stage3.transition.out_ch,
                       self.backbone.stage4.transition.out_ch,
                       self.backbone.stage5.transition.out_ch)
@@ -87,6 +90,7 @@ def build_model(cfg: Dict, device=None,
         legacy_spp_pools=model_cfg.get("SPP_LEGACY_POOLS", True),
         width=float(model_cfg.get("WIDTH", 1.0)),
         depth=float(model_cfg.get("DEPTH", 1.0)),
+        pallas_csp=model_cfg.get("PALLAS_CSP", False),
     )
     if generator is None:
         generator = torch.Generator().manual_seed(0)

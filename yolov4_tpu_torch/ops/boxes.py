@@ -5,7 +5,7 @@ reproducible:
   * pairwise IoU: reference yolo/model/yololoss.py:16-91 (``bboxes_iou``),
     including the strict ``tl < br`` intersection-validity product;
   * resized-image -> source-image unmapping: reference
-    yolo/util/utils.py:312-340 (``yolobox2yxyx``).
+    yolo/util/utils.py:281-340 (``yolobox2xywh``, ``yolobox2yxyx``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,26 @@ def iou_pairwise_safe(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     inter = torch.prod(br - tl, dim=-1) * valid
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / torch.clamp(union, min=eps)
+
+
+def unmap_to_source_tlwh(boxes_xyxy, src_hw, dst_hw,
+                         offset_xy=(0.0, 0.0)) -> np.ndarray:
+    """xyxy boxes in the resized image -> COCO tlwh in the source image
+    (reference utils.py:281-309 ``yolobox2xywh``); the JAX package's
+    ops/boxes.py helper, operation for operation.
+
+    Pure numpy, on fetched detections. ``dst_hw`` is the content size and
+    ``offset_xy`` the letterbox padding, as in unmap_to_source_xyxy.
+    """
+    boxes_xyxy = np.asarray(boxes_xyxy)
+    src_h, src_w = src_hw
+    dst_h, dst_w = dst_hw
+    off_x, off_y = offset_xy
+    x1 = (boxes_xyxy[..., 0] - off_x) / dst_w * src_w
+    y1 = (boxes_xyxy[..., 1] - off_y) / dst_h * src_h
+    w = (boxes_xyxy[..., 2] - boxes_xyxy[..., 0]) / dst_w * src_w
+    h = (boxes_xyxy[..., 3] - boxes_xyxy[..., 1]) / dst_h * src_h
+    return np.stack([x1, y1, w, h], axis=-1)
 
 
 def unmap_to_source_xyxy(boxes_xyxy, src_hw, dst_hw,

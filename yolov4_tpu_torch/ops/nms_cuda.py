@@ -5,10 +5,8 @@ The kernel replaces the TPU kernel ``greedy_nms_mask_pallas``
 source says what bounds it on an H100 and how its design answers that.
 
 It is built from the package's own source at first use, with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``, into
-``yolov4_tpu_torch/_build/`` under a name keyed by a hash of the source and
-the flags, and bound with ``ctypes`` (a plain C interface, so the build
-takes seconds and needs no PyTorch headers).
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``
+(ops/cuda_build.py), and bound with ``ctypes``.
 
 A CPU tensor takes the plain version (ops/nms.greedy_nms_mask). A CUDA
 tensor launches the kernel or raises: there is no fallback.
@@ -17,22 +15,17 @@ tensor launches the kernel or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from yolov4_tpu_torch.ops.cuda_build import (ARCH_FLAGS, COMMON_FLAGS,
+                                             CSRC_DIR, build_library)
 from yolov4_tpu_torch.ops.nms import greedy_nms_mask
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "nms.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = CSRC_DIR / "nms.cu"
+NVCC_FLAGS = (*ARCH_FLAGS, *COMMON_FLAGS, "-fmad=false")
 # the removed-bitset of one image lives in the scan kernel's shared memory
 MAX_K = 48 * 1024 * 8
 
@@ -40,32 +33,10 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
 def build() -> Path:
-    """Compile ``csrc/nms.cu`` into the build directory unless a library
-    for this source and these flags is already there; return its path.
-    A failed build raises ``RuntimeError`` with the compiler's output."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libnms_{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/nms.cu`` (once per source and flags); return the
+    library's path. A failed build raises ``RuntimeError``."""
+    return build_library(SOURCE, NVCC_FLAGS)
 
 
 def _load():

@@ -2,19 +2,21 @@
 
 Usage (on a machine with a CUDA card):
 
-    python -m yolov4_tpu_torch.tools.profile_forward
+    python -m yolov4_tpu_torch.tools.profile_forward [--pallas-csp]
 
 Builds the full-width Predictor of the default config (608x608, bfloat16,
 seed-0 random weights) at batch 16, runs ``Predictor.run`` on one uploaded
 uint8 batch three times under ``torch.profiler``, and prints the device
-time per batch by kernel group (convolution, elementwise, batchnorm,
-top-k/sort, the NMS kernel, other), the 15 most expensive kernels, and
-the device busy share of the profiled window, then all of it as one JSON
-line.
+time per batch by kernel group (the CSP stage kernel, convolution,
+elementwise, batchnorm, top-k/sort, the NMS kernel, other), the 15 most
+expensive kernels, and the device busy share of the profiled window, then
+all of it as one JSON line. ``--pallas-csp`` profiles the
+``MODEL.PALLAS_CSP`` forward (CSP stages 1-3 through K2).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -30,6 +32,7 @@ BATCH, ITERS = 16, 3
 
 # first matching substring (of the lower-cased kernel name) decides the group
 GROUPS = (
+    ("csp kernel", ("csp_conv_kernel",)),
     ("nms kernel", ("nms_mask_kernel", "nms_scan_kernel")),
     ("convolution", ("conv", "gemm", "sm90_xmma", "cutlass", "implicit",
                      "winograd", "dgrad", "fprop")),
@@ -48,10 +51,15 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--pallas-csp", action="store_true",
+                        help="profile the MODEL.PALLAS_CSP fused-stage forward")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA card")
     cfg = load_config(None)
+    cfg["MODEL"]["PALLAS_CSP"] = args.pallas_csp
     size = cfg["TEST"]["IMGSIZE"]
     pred = Predictor(cfg, img_size=size, batch_size=BATCH)
     images = np.random.default_rng(0).integers(
@@ -81,6 +89,7 @@ def main() -> dict:
         "device": torch.cuda.get_device_name(0),
         "batch": BATCH, "img_size": size,
         "dtype": cfg["MODEL"]["COMPUTE_DTYPE"],
+        "pallas_csp": args.pallas_csp,
         "wall_ms_per_batch": wall_ms / ITERS,
         "device_ms_per_batch": device_ms,
         "busy_share": device_ms * ITERS / wall_ms,
@@ -90,7 +99,8 @@ def main() -> dict:
                                      for n, ms in top],
     }
     print(f"{result['device']}: batch {BATCH} at {size}, "
-          f"{result['dtype']}: device {device_ms:.3f} ms / batch, wall "
+          f"{result['dtype']}, PALLAS_CSP {args.pallas_csp}: "
+          f"device {device_ms:.3f} ms / batch, wall "
           f"{result['wall_ms_per_batch']:.3f} ms, busy "
           f"{result['busy_share']:.3f}")
     for group, ms in result["groups_ms_per_batch"].items():

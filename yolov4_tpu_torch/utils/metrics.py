@@ -1,0 +1,23 @@
+"""Running metrics (reference yolo/util/metric.py:11-27; the JAX package's
+utils/metrics.py AverageMeter)."""
+
+from __future__ import annotations
+
+
+class AverageMeter:
+    """Tracks current value, running sum, count and mean."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count

@@ -1,5 +1,4 @@
-"""Detection drawing (reference detect.py:188-228 show_bbox), with the
-port's own copy of the COCO label tables (reference cocodataset.py:24-55)."""
+"""Detection drawing (reference detect.py:188-228 show_bbox)."""
 
 from __future__ import annotations
 
@@ -8,33 +7,7 @@ from typing import Sequence
 import cv2
 import numpy as np
 
-COCO_LABEL_NAMES = (
-    "background",
-    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
-    "truck", "boat", "traffic light", "fire hydrant", "street sign",
-    "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse",
-    "sheep", "cow", "elephant", "bear", "zebra", "giraffe", "hat",
-    "backpack", "umbrella", "shoe", "eye glasses", "handbag", "tie",
-    "suitcase", "frisbee", "skis", "snowboard", "sports ball", "kite",
-    "baseball bat", "baseball glove", "skateboard", "surfboard",
-    "tennis racket", "bottle", "plate", "wine glass", "cup", "fork",
-    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
-    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
-    "couch", "potted plant", "bed", "mirror", "dining table", "window",
-    "desk", "toilet", "door", "tv", "laptop", "mouse", "remote",
-    "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
-    "refrigerator", "blender", "book", "clock", "vase", "scissors",
-    "teddy bear", "hair drier", "toothbrush",
-)
-
-# model class index (0..79) -> COCO category id
-COCO_CLASS_IDS = [
-    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20,
-    21, 22, 23, 24, 25, 27, 28, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40,
-    41, 42, 43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
-    59, 60, 61, 62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79,
-    80, 81, 82, 84, 85, 86, 87, 88, 89, 90,
-]
+from yolov4_tpu_torch.data.coco import COCO_CLASS_IDS, COCO_LABEL_NAMES
 
 _COLORS = np.random.RandomState(12345).randint(96, 255, size=(80, 3))
 
