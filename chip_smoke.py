@@ -10,7 +10,11 @@ Phases; any failure ends the run with a non-zero exit code and no result
 line:
 
   1. build   — compile yolov4_tpu_torch/csrc/nms.cu and csrc/csp.cu with
-               nvcc for sm_90a, one nvcc each, started together.
+               nvcc for sm_90a, one nvcc each, started together; print
+               -Xptxas -v's report of each bf16 K2 kernel instance
+               (registers, spills, notes) with its dynamic shared memory;
+               the instances the 608 stages launch must not spill and must
+               use more than 48 KB of dynamic shared memory.
   2. kernel  — the greedy-NMS kernel (K1) against its plain PyTorch version
                on the card: keep masks bit-equal on the cases of
                tests/test_nms_pallas.py, a ragged K, and the main-path shape
@@ -27,14 +31,19 @@ line:
   5. detect  — ``python -m yolov4_tpu_torch.detect``'s entry point on four
                synthetic JPEGs writes four drawn images.
   6. k2      — the fused CSP stage kernel (K2) against its plain version at
-               the three stage shapes of 608/b16 and two ragged shapes, in
+               the three stage shapes of 608/b16 and three ragged shapes
+               (C = 16, 24 and 18, the last not a multiple of 8), in
                float32 (TF32 off) and bfloat16 (tolerances at K2_TOL_*).
   7. fused   — the full-width 608/b16 bfloat16 forward with PALLAS_CSP on,
-               BN re-drawn: K2 launches 3 times, its decoded predictions
-               agree with the default path's (FUSED_TOL_*); each stage body
-               on its real input: K2 against its plain version, timed beside
-               the plain version and the default layer-by-layer body; the
-               Predictor with PALLAS_CSP on, timed as in phase 3.
+               BN re-drawn: K2 launches 3 times and its conv kernels 14
+               times (ops/csp.launch_plan), its decoded predictions agree
+               with the default path's (FUSED_TOL_*); each stage body on its
+               real input: K2 against its plain version, its conv launches
+               against launch_plan, timed beside the plain version, the
+               default layer-by-layer body and cuDNN's convs alone on the
+               same folded weights (a yardstick the port never calls), with
+               its bound, the launch plan's bound and the achieved TFLOP/s;
+               the Predictor with PALLAS_CSP on, timed as in phase 3.
   8. val     — ``python -m yolov4_tpu_torch.val``'s entry point at full
                width with PALLAS_CSP on, batch 16, conf 0.001, on a
                synthetic COCO val2017 of 32 images: finite AP in [0, 1],
@@ -89,7 +98,7 @@ K2_TOL_BF16_VS_F32 = 1.25
 FUSED_TOL_VS_F32 = 1.25
 STAGE_SHAPES = ((16, 304, 304, 64, 0), (16, 152, 152, 128, 2),
                 (16, 76, 76, 256, 8))
-RAGGED_SHAPES = ((2, 9, 13, 16, 0), (3, 11, 7, 24, 3))
+RAGGED_SHAPES = ((2, 9, 13, 16, 0), (3, 11, 7, 24, 3), (2, 5, 7, 18, 1))
 
 
 def log(msg: str) -> None:
@@ -372,6 +381,30 @@ def build_kernels(modules, report):
         f"{report['build_s']:.1f}s")
 
 
+def k2_build_report(csp_cuda, kernel_widths, report):
+    """-Xptxas -v's figures for each bf16 K2 instance; the instances of the
+    608 stages must not spill and must take > 48 KB of dynamic shared
+    memory (the ring)."""
+    rows = csp_cuda.kernel_report()
+    main = {(kind, kernel_widths(c, nb)[0]) for _, _, _, c, nb in STAGE_SHAPES
+            for kind in csp_cuda.plan_kinds(nb)}
+    for r in rows:
+        r["main_path"] = (r["kind"], r["cp"]) in main
+        log(f"[build] K2 {r['kind']}<{r['cp']}>: ptxas {r['registers']} "
+            f"registers, {r['stack']} B stack, {r['spill_stores']} / "
+            f"{r['spill_loads']} B spill stores / loads, "
+            f"{r['dynamic_smem']} B dynamic shared memory"
+            + (f", notes {r['notes']}" if r["notes"] else "")
+            + (" (main path)" if r["main_path"] else ""))
+        if r["main_path"] and (r["spill_stores"] or r["spill_loads"]
+                               or r["dynamic_smem"] <= 48 * 1024):
+            raise AssertionError(f"K2 instance {r['kind']}<{r['cp']}> "
+                                 f"spills or has <= 48 KB of ring: {r}")
+    if {(r["kind"], r["cp"]) for r in rows} < main:
+        raise AssertionError("the build log lacks a main-path K2 instance")
+    report["k2_build"] = rows
+
+
 def k2_shapes(c, nb):
     """(ci, co, k) of each conv of a stage body, by folded-dict name."""
     c2 = c // 2
@@ -400,18 +433,73 @@ def k2_case(seed, b, h, w, c, nb):
     return x, folded
 
 
-def k2_bound(x, packed):
+def k2_ops(x, folded):
+    """Multiply-adds x 2 of every conv of a stage body at every pixel."""
+    b, h, w, _ = x.shape
+    return 2 * b * h * w * sum(k.numel() for k, _ in folded.values())
+
+
+def k2_weight_bytes(x, folded):
+    return sum(k.numel() * x.element_size() + bias.numel() * 4
+               for k, bias in folded.values())
+
+
+def k2_bound(x, folded):
     """(bound_ms, bound_by) of one stage body on NHWC x: every conv's
     multiply-adds at every pixel over the peak of x's type, against x, the
     weights and the output moved once."""
-    b, h, w, _ = x.shape
-    ops = 2 * b * h * w * sum(t.shape[0] * t.shape[1] for t in packed[0::2])
-    nbytes = (2 * x.numel() * x.element_size()
-              + sum(t.numel() * t.element_size() for t in packed))
+    nbytes = 2 * x.numel() * x.element_size() + k2_weight_bytes(x, folded)
     peak = PEAK_BF16_OPS if x.dtype == torch.bfloat16 else PEAK_F32_OPS
-    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = k2_ops(x, folded) / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def plan_bound(x, folded, nb, launch_plan):
+    """(bound_ms, bound_by) of the launch plan: the same operations against
+    the bytes each launch must move, each value it reads from memory
+    (the 3x3 sources, residuals, x1) read once, each value it stores
+    written once, and its weights."""
+    b, h, w, c = x.shape
+    m, isz = b * h * w, x.element_size()
+    width = {"x": c}
+    nbytes = 0
+    for launch in launch_plan(c, nb):
+        made, read = set(), set()
+        for g in launch.gemms:
+            read |= {v for v in (*g.srcs, g.res) if v and v not in made}
+            for conv, out in zip(g.convs, g.outs):
+                width[out] = folded[conv][0].shape[-1]
+                nbytes += (folded[conv][0].numel() * isz
+                           + folded[conv][1].numel() * 4)
+            made |= set(g.outs)
+        nbytes += m * isz * sum(width[v] for v in (*read, *launch.stores))
+    t_ops = k2_ops(x, folded) / PEAK_BF16_OPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cudnn_convs(x, folded):
+    """A callable running one F.conv2d per conv of the stage on the folded
+    weights, channels-last in x's dtype, on inputs of each conv's width
+    (x itself where the width is C): cuDNN's convolutions without bias,
+    Mish or residual, as a yardstick. The port never calls it."""
+    import torch.nn.functional as F
+    b, h, w, c = x.shape
+    g = torch.Generator("cuda").manual_seed(9)
+    inputs = {c: x.permute(0, 3, 1, 2)}
+    convs = []
+    for kernel, _ in folded.values():
+        k, _, ci, _ = kernel.shape
+        if ci not in inputs:
+            inputs[ci] = torch.randn((b, ci, h, w), device=x.device,
+                                     dtype=x.dtype, generator=g).contiguous(
+                memory_format=torch.channels_last)
+        wt = kernel.permute(3, 2, 0, 1).to(x.dtype).contiguous(
+            memory_format=torch.channels_last)
+        convs.append((inputs[ci], wt, k // 2))
+    return lambda: [F.conv2d(inp, wt, padding=pad) for inp, wt, pad in convs]
 
 
 def check_k2(csp_cuda, plain, x, folded, nb, packed, label):
@@ -448,7 +536,7 @@ def check_k2(csp_cuda, plain, x, folded, nb, packed, label):
 
 def phase_k2_cases(csp_cuda, plain, report):
     """K2 against its plain version on seeded inputs, float32 and
-    bfloat16, at the stage shapes of 608/b16 and two ragged shapes."""
+    bfloat16, at the stage shapes of 608/b16 and the ragged shapes."""
     rows = []
     with tf32_off(), torch.inference_mode():
         for i, (b, h, w, c, nb) in enumerate(STAGE_SHAPES + RAGGED_SHAPES):
@@ -463,7 +551,8 @@ def phase_k2_cases(csp_cuda, plain, report):
     report["k2_cases"] = rows
 
 
-def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain, report):
+def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain,
+                launch_plan, report):
     """The full-width 608/b16 bfloat16 forward with PALLAS_CSP on against
     the default path and a float32 forward of the same weights; each of
     stages 1-3 on its real input; then the Predictor with PALLAS_CSP on.
@@ -480,14 +569,19 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain, report):
     x = torch.rand((batch, 3, size, size), device="cuda",
                    generator=torch.Generator("cuda").manual_seed(4))
     x = x.contiguous(memory_format=torch.channels_last)
+    plan_launches = sum(len(launch_plan(s.base.conv.out_channels,
+                                        s.num_blocks)) for s in stages)
     with torch.inference_mode():
         csp_cuda.fused_csp_stage_cuda.launches = 0
+        conv0 = csp_cuda.conv_launches()
         fused = model(x)
         torch.cuda.synchronize()
         launches = csp_cuda.fused_csp_stage_cuda.launches
-        if launches != 3:
-            raise AssertionError(f"K2 launched {launches} times in one "
-                                 "forward")
+        conv_launches = csp_cuda.conv_launches() - conv0
+        if launches != 3 or conv_launches != plan_launches:
+            raise AssertionError(f"K2 launched {launches} times and its conv "
+                                 f"kernels {conv_launches} times in one "
+                                 f"forward (plan: 3 and {plan_launches})")
         fused_ms = cuda_ms(lambda: model(x), iters=10)
         for stage in stages:
             stage.fused = False
@@ -520,7 +614,7 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain, report):
                   box_max_px=float(d[..., :4].max()),
                   score_std=float(want[..., 4:].std()))
     log(f"[fused] 608/b16 bf16, BN re-drawn: K2 launches {launches} per "
-        f"forward; vs float32: fused {errs['fused']}, default "
+        f"forward, {conv_launches} conv kernel launches; vs float32: fused {errs['fused']}, default "
         f"{errs['default']}; fused vs default {direct}")
     for key in ("score_mean", "box_mean_px"):
         if errs["fused"][key] > FUSED_TOL_VS_F32 * errs["default"][key]:
@@ -541,19 +635,33 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain, report):
             folded, packed = stage.folded_weights(xb)
             res = check_k2(csp_cuda, plain, nhwc, folded, nb, packed,
                            f"{name} main-path input")
+            conv0 = csp_cuda.conv_launches()
+            csp_cuda.fused_csp_stage_cuda(nhwc, folded, nb, packed)
+            n_conv = csp_cuda.conv_launches() - conv0
+            n_plan = len(launch_plan(nhwc.shape[-1], nb))
+            if n_conv != n_plan:
+                raise AssertionError(f"K2 {name}: {n_conv} conv launches, "
+                                     f"the plan has {n_plan}")
             ms = cuda_ms(lambda: csp_cuda.fused_csp_stage_cuda(
                 nhwc, folded, nb, packed))
             plain_ms = cuda_ms(lambda: plain(nhwc, folded, nb), iters=5)
             body_ms = cuda_ms(lambda: stage.body(xb))
-            bound_ms, bound_by = k2_bound(nhwc, packed)
+            cudnn_ms = cuda_ms(cudnn_convs(nhwc, folded))
+            bound_ms, bound_by = k2_bound(nhwc, folded)
+            pbound_ms, pbound_by = plan_bound(nhwc, folded, nb, launch_plan)
+            tflops = k2_ops(nhwc, folded) / (ms * 1e-3) / 1e12
             per_stage.append(dict(
                 stage=name, shape=list(nhwc.shape), num_blocks=nb,
-                conv_launches=len(packed) // 2, ms=ms, plain_ms=plain_ms,
-                default_body_ms=body_ms, bound_ms=bound_ms,
-                bound_by=bound_by, **res))
-            log(f"[fused] {name} {tuple(nhwc.shape)} nb={nb}: K2 {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, default body {body_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms by {bound_by}")
+                conv_launches=n_conv, gemms=len(packed) // 2, ms=ms,
+                plain_ms=plain_ms, default_body_ms=body_ms,
+                cudnn_convs_ms=cudnn_ms, bound_ms=bound_ms,
+                bound_by=bound_by, plan_bound_ms=pbound_ms,
+                plan_bound_by=pbound_by, tflops=tflops, **res))
+            log(f"[fused] {name} {tuple(nhwc.shape)} nb={nb}: K2 {ms:.4f} ms "
+                f"in {n_conv} conv launches ({tflops:.1f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, default body {body_ms:.4f} ms, cuDNN "
+                f"convs alone {cudnn_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                f"{bound_by}, plan bound {pbound_ms:.4f} ms by {pbound_by}")
             h = csp_cuda.fused_csp_stage_cuda(nhwc, folded, nb,
                                               packed).permute(0, 3, 1, 2)
     del model
@@ -576,7 +684,8 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain, report):
     log(f"[fused] Predictor with PALLAS_CSP: normalize+fwd+NMS {run_ms:.3f} "
         f"ms per batch ({batch * 1e3 / run_ms:.1f} img/s), e2e "
         f"{e2e_img_s:.2f} img/s (host clock, upload to fetch)")
-    report["fused"] = dict(launches=launches, fwd_ms=fused_ms,
+    report["fused"] = dict(launches=launches, conv_launches=conv_launches,
+                           fwd_ms=fused_ms,
                            default_fwd_ms=default_ms, run_ms=run_ms,
                            device_img_s=batch * 1e3 / run_ms,
                            e2e_img_s=e2e_img_s, vs_f32=errs,
@@ -665,13 +774,15 @@ def main() -> int:
     from yolov4_tpu_torch.models import build_model
     from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
     from yolov4_tpu_torch.ops import postprocess as postprocess_mod
-    from yolov4_tpu_torch.ops.csp import fused_csp_stage_plain
+    from yolov4_tpu_torch.ops.csp import (fused_csp_stage_plain,
+                                          kernel_widths, launch_plan)
     from yolov4_tpu_torch.ops.nms import greedy_nms_mask
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     report = {}
     build_kernels([nms_cuda, csp_cuda], report)
+    k2_build_report(csp_cuda, kernel_widths, report)
 
     err = phase_kernel_cases(nms_cuda, greedy_nms_mask)
 
@@ -698,7 +809,7 @@ def main() -> int:
     phase_detect(detect_mod, nms_cuda, report)
     phase_k2_cases(csp_cuda, fused_csp_stage_plain, report)
     stages = phase_fused(Config, build_model, Predictor, csp_cuda,
-                         fused_csp_stage_plain, report)
+                         fused_csp_stage_plain, launch_plan, report)
     k2_launches = phase_val(val_mod, COCO_CLASS_IDS, nms_cuda, csp_cuda,
                             report)
 
@@ -734,8 +845,12 @@ def main() -> int:
                                         for r in stages) else "bytes",
         "library_ms": None,
         "library_note": "no single PyTorch call computes a CSP stage body; "
-                        "default_body_ms is the layer-by-layer path",
+                        "default_body_ms is the layer-by-layer path, "
+                        "cudnn_convs_ms cuDNN's convolutions alone",
         "default_body_ms": sum(r["default_body_ms"] for r in stages),
+        "conv_launches_per_forward": sum(r["conv_launches"] for r in stages),
+        "cudnn_convs_ms": sum(r["cudnn_convs_ms"] for r in stages),
+        "plan_bound_ms": sum(r["plan_bound_ms"] for r in stages),
         "per_stage": stages,
     }]}
     print(json.dumps({"report": report}))

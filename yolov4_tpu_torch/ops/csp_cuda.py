@@ -13,19 +13,24 @@ CUDA tensor launches the kernel or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import re
 import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
-from yolov4_tpu_torch.ops.csp import (Folded, fused_csp_stage_plain,
+from yolov4_tpu_torch.ops.csp import (KERNEL_WIDTHS, Folded,
+                                      fused_csp_stage_plain,
+                                      kernel_gemm_shapes, kernel_widths,
                                       pack_weights)
 from yolov4_tpu_torch.ops.cuda_build import (ARCH_FLAGS, COMMON_FLAGS,
                                              CSRC_DIR, build_library)
 
 SOURCE = CSRC_DIR / "csp.cu"
-NVCC_FLAGS = (*ARCH_FLAGS, *COMMON_FLAGS)
+# -Xptxas -v: registers, shared memory and spills of each kernel, in the
+# build log (cuda_build.build_library)
+NVCC_FLAGS = (*ARCH_FLAGS, *COMMON_FLAGS, "-Xptxas", "-v")
 DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
@@ -47,39 +52,107 @@ def _load():
                 [ctypes.c_int] + [ctypes.c_void_p] * 7
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             lib.csp_stage.restype = ctypes.c_int
+            lib.csp_conv_launches.argtypes = []
+            lib.csp_conv_launches.restype = ctypes.c_longlong
+            lib.csp_wgmma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.csp_wgmma_smem.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+# the bfloat16 kernel's launch kinds, in csrc/csp.cu's order (wg::Kind)
+KINDS = ("csp0_first", "csp0_last", "csp_first", "csp_mid", "csp_last")
+
+
+def plan_kinds(num_blocks: int) -> list:
+    """The launch kinds of ops/csp.launch_plan in bfloat16, in order."""
+    if num_blocks == 0:
+        return ["csp0_first", "csp0_last"]
+    return ["csp_first"] + ["csp_mid"] * (num_blocks - 1) + ["csp_last"]
+
+
+def kernel_report() -> list:
+    """Each bfloat16 kernel instance as the build's ``-Xptxas -v`` reports
+    it: launch kind, width CP, registers (ptxas' figure is the cap of the
+    384-thread launch; setmaxnreg then gives the producer 64 and the
+    consumers 216), stack and spill bytes, ptxas' performance notes (codes
+    such as C7512, wgmma serialised), and the dynamic shared memory the
+    launch asks for."""
+    lib = _load()
+    log = build().with_suffix(".log").read_text().splitlines()
+    name = re.compile(r"csp_wgmma_kernelILi(\d)ELi(\d+)E")
+    notes = {}
+    for line in log:
+        code, m = re.search(r"\((C\d+)\)", line), name.search(line)
+        if code and m:
+            notes.setdefault(m.groups(), []).append(code.group(1))
+    rows, row = [], None
+    for line in log:
+        m = name.search(line)
+        if "Compiling entry function" in line:
+            row = None
+            if m:
+                kind, cp = int(m.group(1)), int(m.group(2))
+                row = dict(kind=KINDS[kind], cp=cp,
+                           dynamic_smem=lib.csp_wgmma_smem(kind, cp),
+                           notes=notes.get(m.groups(), []))
+                rows.append(row)
+        elif row is not None and "registers" in line:
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+        elif row is not None and "spill stores" in line:
+            row["stack"], row["spill_stores"], row["spill_loads"] = map(
+                int, re.findall(r"(\d+) bytes", line)[:3])
+    return rows
+
+
+def conv_launches() -> int:
+    """Conv kernel launches the library has enqueued since it was loaded
+    (the launches of ops/csp.launch_plan in bfloat16)."""
+    return int(_load().csp_conv_launches())
 
 
 def fused_csp_supported(shape: Sequence[int], num_blocks: int,
                         dtype: torch.dtype) -> bool:
     """Whether the kernel takes an NHWC input of this shape and dtype for a
     stage body with ``num_blocks`` residual blocks (0 = csp0): any
-    non-empty [B, H, W, C] with an even C, float32 or bfloat16. Shape
-    logic only; the device is the caller's business."""
+    non-empty [B, H, W, C] with an even C, float32 or bfloat16; in
+    bfloat16 C up to the widest compiled width (ops/csp.KERNEL_WIDTHS:
+    128 for csp0, 256 otherwise, the widths of CSPDarknet53's stages 1-3
+    at WIDTH 1). Shape logic only; the device is the caller's business."""
     if len(shape) != 4 or dtype not in DTYPES or num_blocks < 0:
         return False
     b, h, w, c = (int(s) for s in shape)
+    if dtype == torch.bfloat16 and c > KERNEL_WIDTHS[min(num_blocks, 1)][-1]:
+        return False
     return min(b, h, w) > 0 and c >= 2 and c % 2 == 0
 
 
-def _weight_shapes(c: int, num_blocks: int) -> list:
-    """[K, N] of each packed weight, in launch order (ops/csp.pack_weights)."""
+def _weight_shapes(c: int, num_blocks: int, dtype: torch.dtype) -> list:
+    """(weight shape, bias shape) of each packed GEMM, in launch order
+    (ops/csp.pack_weights): float32 [K, N] and [N]; bfloat16 the flat
+    chunked [K/64 * N * 64] and [N] at the padded widths."""
+    if dtype == torch.bfloat16:
+        return [((n * chunks * 64,), (n,))
+                for n, chunks in kernel_gemm_shapes(c, num_blocks)]
     c2 = c // 2
     if num_blocks == 0:
-        return [(c, 2 * c), (c, c2), (9 * c2, c), (c, c), (2 * c, c)]
-    return ([(c, c)] + [(c2, c2), (9 * c2, c2)] * num_blocks
-            + [(c2, c2), (c, c)])
+        kn = [(c, 2 * c), (c, c2), (9 * c2, c), (c, c), (2 * c, c)]
+    else:
+        kn = ([(c, c)] + [(c2, c2), (9 * c2, c2)] * num_blocks
+              + [(c2, c2), (c, c)])
+    return [(s, s[1:]) for s in kn]
 
 
 def _check_packed(packed, c, num_blocks, x) -> None:
-    shapes = _weight_shapes(c, num_blocks)
+    shapes = _weight_shapes(c, num_blocks, x.dtype)
     if len(packed) != 2 * len(shapes):
         raise ValueError(f"expected {2 * len(shapes)} packed tensors, got "
                          f"{len(packed)}")
-    for i, kn in enumerate(shapes):
+    for i, (w_shape, b_shape) in enumerate(shapes):
         w, b = packed[2 * i], packed[2 * i + 1]
-        for t, want, dt in ((w, kn, x.dtype), (b, kn[1:], torch.float32)):
+        for t, want, dt in ((w, w_shape, x.dtype),
+                            (b, b_shape, torch.float32)):
             if (tuple(t.shape) != want or t.dtype != dt
                     or t.device != x.device or not t.is_contiguous()):
                 raise ValueError(
@@ -100,9 +173,9 @@ def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
     dtype), so that a caller that keeps them skips the packing.
 
     On a CUDA tensor it enqueues the stage's conv kernels on the current
-    stream (no synchronisation) and adds one to
-    ``fused_csp_stage_cuda.launches``; on a CPU tensor it returns the plain
-    version and launches nothing.
+    stream (no synchronisation; in bfloat16 the launches of
+    ops/csp.launch_plan) and adds one to ``fused_csp_stage_cuda.launches``;
+    on a CPU tensor it returns the plain version and launches nothing.
     """
     if x.device.type == "cpu":
         return fused_csp_stage_plain(x, folded, num_blocks)
@@ -110,8 +183,10 @@ def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
         raise ValueError(f"unsupported device {x.device}")
     if not fused_csp_supported(x.shape, num_blocks, x.dtype):
         raise ValueError(f"the CSP kernel takes a non-empty NHWC float32 or "
-                         f"bfloat16 input with an even C; got {x.dtype} "
-                         f"{tuple(x.shape)}, num_blocks={num_blocks}")
+                         f"bfloat16 input with an even C (bfloat16: C <= "
+                         f"{KERNEL_WIDTHS[min(num_blocks, 1)][-1]}); got "
+                         f"{x.dtype} {tuple(x.shape)}, "
+                         f"num_blocks={num_blocks}")
     if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
     b, h, w, c = x.shape
@@ -119,10 +194,15 @@ def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
         packed = [t.to(x.device) for t in pack_weights(folded, num_blocks,
                                                        x.dtype)]
     _check_packed(packed, c, num_blocks, x)
-    m, c2 = b * h * w, c // 2
-    wide = 2 * c if num_blocks == 0 else c
-    scratch = [torch.empty((m, cols), dtype=x.dtype, device=x.device)
-               for cols in (wide, c2, c if num_blocks == 0 else c2)]
+    m = b * h * w
+    if x.dtype == torch.bfloat16:     # P, then t or p0, then p1
+        cp, c2p = kernel_widths(c, num_blocks)
+        cols = ((2 * cp, c2p, 0) if num_blocks == 0 else (cp, c2p, c2p))
+    else:                             # P, t, x2
+        c2 = c // 2
+        cols = ((2 * c, c2, c) if num_blocks == 0 else (c, c2, c2))
+    scratch = [torch.empty((m, n), dtype=x.dtype, device=x.device)
+               for n in cols]
     out = torch.empty_like(x)
     n = len(packed) // 2
     w_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in packed[0::2]])

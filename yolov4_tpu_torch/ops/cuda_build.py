@@ -4,7 +4,9 @@ Each library is compiled on first use into ``yolov4_tpu_torch/_build/``
 under a name keyed by a hash of its source and flags, so an edited source
 or a changed flag builds anew and an unchanged one is reused. The sources
 have a plain C interface and include no PyTorch header: a build takes
-seconds, and the wrappers bind them with ``ctypes``.
+seconds, and the wrappers bind them with ``ctypes``. The compiler's output
+(with ``-Xptxas -v``, each kernel's registers, shared memory and spills)
+is kept beside the library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -48,5 +50,6 @@ def build_library(source: Path, flags: Sequence[str]) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out

@@ -32,7 +32,7 @@ BATCH, ITERS = 16, 3
 
 # first matching substring (of the lower-cased kernel name) decides the group
 GROUPS = (
-    ("csp kernel", ("csp_conv_kernel",)),
+    ("csp kernel", ("csp_wgmma_kernel", "csp_conv_kernel")),
     ("nms kernel", ("nms_mask_kernel", "nms_scan_kernel")),
     ("convolution", ("conv", "gemm", "sm90_xmma", "cutlass", "implicit",
                      "winograd", "dgrad", "fprop")),
