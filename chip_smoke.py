@@ -11,20 +11,31 @@ line:
 
   1. build   — compile yolov4_tpu_torch/csrc/nms.cu and csrc/csp.cu with
                nvcc for sm_90a, one nvcc each, started together; print
-               -Xptxas -v's report of each bf16 K2 kernel instance
-               (registers, spills, notes) with its dynamic shared memory;
-               the instances the 608 stages launch must not spill and must
-               use more than 48 KB of dynamic shared memory.
+               -Xptxas -v's report of each K1 kernel (registers, spills,
+               shared memory; none may spill) and of each bf16 K2 kernel
+               instance (registers, spills, notes) with its dynamic shared
+               memory; the instances the 608 stages launch must not spill
+               and must use more than 48 KB of dynamic shared memory.
   2. kernel  — the greedy-NMS kernel (K1) against its plain PyTorch version
                on the card: keep masks bit-equal on the cases of
-               tests/test_nms_pallas.py, a ragged K, and the main-path shape
-               (B=16, K=2048, t=0.4, class-offset coordinates).
+               tests/test_nms_pallas.py, ragged K, t = 0, K = 6000 (94 mask
+               words: more than a warp's lanes), K = 12000 (near the most
+               the scan's ring of two slabs holds), K = 16384 (above that:
+               the scan reads device memory), the main-path shape (B=16,
+               K=2048, t=0.4, class-offset coordinates) and a suppression-heavy
+               input (few classes, small spread); under batch isolation;
+               and each of its two launches against its CPU-side
+               description (ops/nms.pair_mask_words, scan_mask_words).
   3. main    — the detection path at the full width of YOLOv4
                (CSPDarknet53, 80 classes, 608x608, batch 16, bfloat16,
                seeded random weights) through Predictor: launches counted,
                outputs checked, the same decoded predictions through the
-               plain NMS give identical detections; K1 and the plain version
-               timed on the NMS inputs this path produced.
+               plain NMS give identical detections; K1 and the plain
+               version timed on the NMS inputs this path produced, and K1
+               on the suppression-heavy input: ms is one call between CUDA
+               events, the host's enqueue included, as every kernel's;
+               device_ms, and each of K1's two launches, are timed with a
+               spin kernel queued ahead, so that the enqueue is not.
   4. device  — the port at WIDTH 0.25 in float32 (TF32 off) on the card
                against the same model on the CPU, decoded predictions
                within atol = rtol = 1e-3.
@@ -42,7 +53,8 @@ line:
                against launch_plan, timed beside the plain version, the
                default layer-by-layer body and cuDNN's convs alone on the
                same folded weights (a yardstick the port never calls), with
-               its bound, the launch plan's bound and the achieved TFLOP/s;
+               its bound, the launch plan's bound and the achieved TFLOP/s,
+               and K2's device time with a spin kernel queued ahead;
                the Predictor with PALLAS_CSP on, timed as in phase 3.
   8. val     — ``python -m yolov4_tpu_torch.val``'s entry point at full
                width with PALLAS_CSP on, batch 16, conf 0.001, on a
@@ -105,8 +117,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``, from CUDA events."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            queue_ahead: bool = False) -> float:
+    """Median time of one call of ``fn``, from CUDA events. Between the
+    events the card also idles while the host enqueues the call; with
+    ``queue_ahead`` a ~2 ms spin kernel runs first, so that the call is
+    enqueued before the card reaches it and the events time its kernels
+    alone (device time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -114,6 +131,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(4_000_000)
         start.record()
         fn()
         end.record()
@@ -141,7 +160,40 @@ def nms_bound(b: int, k: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernel_cases(nms_cuda, plain):
+def nms_suppressed_case(seed=31, b=16, k=2048):
+    """Suppression-heavy NMS input, as conf 0.001 with trained weights
+    gives: valid_p 0.9, boxes 15 to 160 px wide over a 50 px spread, in 4
+    classes, class-offset as on the main path; most candidates are
+    suppressed."""
+    boxes, valid = nms_case(seed, b, k, 0.9, 50.0, 160.0)
+    cls = np.random.default_rng(seed + 1).integers(0, 4, (b, k, 1))
+    span = np.float32(2.0 * np.abs(boxes).max() + 1.0)
+    return (boxes + cls * span).astype(np.float32), valid, 0.4
+
+
+def check_halves(nms_cuda, boxes, valid, t, label):
+    """K1's two launches against their CPU-side descriptions on the card:
+    the mask launch's words (rows below K, words at or above the diagonal,
+    the only ones it writes) equal ops/nms.pair_mask_words', and the scan
+    launch on them equals ops/nms.scan_mask_words'."""
+    from yolov4_tpu_torch.ops.nms import pair_mask_words, scan_mask_words
+    k = boxes.shape[1]
+    mask = nms_cuda.pair_mask_words_cuda(boxes, t)
+    want = pair_mask_words(boxes, t)
+    got = mask[:, :k]
+    row_block = torch.arange(k, device=boxes.device)[:, None] // 64
+    upper = torch.arange(got.shape[-1], device=boxes.device) >= row_block
+    if not torch.equal(torch.where(upper, got, 0), want):
+        raise AssertionError(f"K1 {label}: mask words differ at "
+                             f"{int(((got != want) & upper).sum())} places")
+    keep = nms_cuda.scan_mask_words_cuda(mask, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, scan_mask_words(mask, valid)):
+        raise AssertionError(f"K1 {label}: the scan launch differs from "
+                             f"scan_mask_words")
+
+
+def phase_kernel_cases(nms_cuda, plain, report):
     """K1 bit-equal to the plain version on the card; returns max |err|."""
     cases = [(*nms_case(s, 2, 1024), 0.45) for s in range(3)]
     cases.append((*nms_case(11, 3, 512, 0.95, 150.0, 200.0), 0.4))
@@ -152,22 +204,37 @@ def phase_kernel_cases(nms_cuda, plain):
     some[:, :10] = True
     cases.append((zeros, some, 0.4))
     cases.append((*nms_case(8, 3, 1000), 0.45))  # ragged K
+    cases.append((*nms_case(0, 2, 300), 0.45))
     boxes, valid = nms_case(21, 16, 2048, 0.9, 608.0, 300.0)
     cls = np.random.default_rng(22).integers(0, 80, (16, 2048, 1))
     span = np.float32(2.0 * np.abs(boxes).max() + 1.0)
     cases.append(((boxes + cls * span).astype(np.float32), valid, 0.4))
-    err = 0.0
+    cases.append((*nms_case(12, 2, 256), 0.0))   # disjoint pairs suppress
+    cases.append((*nms_case(13, 2, 6000, 0.9, 3000.0, 300.0), 0.45))
+    cases.append((*nms_case(14, 1, 12000, 0.9, 6000.0, 300.0), 0.45))
+    cases.append((*nms_case(15, 1, 16384, 0.9, 8000.0, 300.0), 0.45))
+    cases.append(nms_suppressed_case())
+    err, rows = 0.0, []
     for i, (boxes, valid, t) in enumerate(cases):
         bx = torch.from_numpy(boxes).cuda()
         vd = torch.from_numpy(valid).cuda()
         got = nms_cuda.greedy_nms_mask_cuda(bx, vd, t)
         torch.cuda.synchronize()
         want = plain(bx, vd, t)
+        b, k = valid.shape
+        rows.append(dict(b=b, k=k, t=t, slots=nms_cuda.scan_slots(k),
+                         valid=int(valid.sum()), kept=int(got.sum())))
         if not torch.equal(got, want):
             raise AssertionError(
-                f"K1 case {i} {tuple(boxes.shape)}: keep masks differ at "
-                f"{int((got != want).sum())} positions")
+                f"K1 case {i} {tuple(boxes.shape)} t={t}: keep masks differ "
+                f"at {int((got != want).sum())} positions")
         err = max(err, float((got.float() - want.float()).abs().max()))
+        if k <= 2048:
+            check_halves(nms_cuda, bx, vd, t, f"case {i}")
+        del bx, vd, got, want
+        torch.cuda.empty_cache()
+    if {bool(r["slots"]) for r in rows} != {False, True}:
+        raise AssertionError(f"K1 cases miss a scan variant: {rows}")
     # batch isolation: each image alone gives its row of the batched mask
     boxes, valid = nms_case(5, 4, 256)
     bx, vd = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
@@ -177,8 +244,27 @@ def phase_kernel_cases(nms_cuda, plain):
         if not torch.equal(full[i], solo[0]):
             raise AssertionError(f"K1 batch isolation: image {i} differs")
     log(f"[kernel] {len(cases)} cases + batch isolation bit-equal to the "
-        f"plain version, max_abs_err {err}")
+        f"plain version, each launch equal to its CPU-side description "
+        f"(K <= 2048), max_abs_err {err}; cases (B, K, t, slabs, valid, "
+        f"kept): {[tuple(r.values()) for r in rows]}")
+    report["k1_cases"] = rows
     return err
+
+
+def k1_build_report(nms_cuda, report):
+    """-Xptxas -v's figures for each K1 kernel; none may spill."""
+    rows = nms_cuda.kernel_report(2048)
+    for r in rows:
+        log(f"[build] K1 {r['name']}: ptxas {r['registers']} registers, "
+            f"{r['stack']} B stack, {r['spill_stores']} / {r['spill_loads']} "
+            f"B spill stores / loads, {r['static_smem']} B static and "
+            f"{r['dynamic_smem']} B dynamic shared memory at K=2048")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"K1 kernel spills: {r}")
+    if len(rows) != 3:
+        raise AssertionError(f"expected the mask kernel and two scan "
+                             f"variants in the build log, got {rows}")
+    report["k1_build"] = rows
 
 
 def library_nms_ms(boxes, valid, t):
@@ -196,6 +282,64 @@ def library_nms_ms(boxes, valid, t):
     groups = torch.arange(b, device=boxes.device).repeat_interleave(k)
     fb, fs, fg = boxes.reshape(-1, 4)[rows], scores[rows], groups[rows]
     return cuda_ms(lambda: batched_nms(fb, fs, fg, t))
+
+
+def time_k1(nms_cuda, plain, boxes, valid, t):
+    """K1 on the main path's NMS input: bit-equal to the plain version, then
+    timed whole and launch by launch, beside the plain version, its bound
+    and a library NMS where one is installed."""
+    b, k, _ = boxes.shape
+    want = plain(boxes, valid, t)
+    got = nms_cuda.greedy_nms_mask_cuda(boxes, valid, t)
+    if not torch.equal(got, want):
+        raise AssertionError("K1 differs from the plain version on the main "
+                             "path's NMS input")
+    check_halves(nms_cuda, boxes, valid, t, "main-path input")
+    res = dict(b=b, k=k, t=t, valid=int(valid.sum()), kept=int(got.sum()),
+               **time_k1_launches(nms_cuda, boxes, valid, t),
+               plain_ms=cuda_ms(lambda: plain(boxes, valid, t), iters=5),
+               library_ms=library_nms_ms(boxes, valid, t))
+    res["bound_ms"], res["bound_by"] = nms_bound(b, k)
+    log(f"[kernel] main-path input B={b} K={k} t={t} ({res['valid']} valid, "
+        f"{res['kept']} kept): K1 {res['ms']:.4f} ms with the host's "
+        f"enqueue, device {res['device_ms']:.4f} ms (mask launch "
+        f"{res['mask_ms']:.4f}, scan launch {res['scan_ms']:.4f}), plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms by "
+        f"{res['bound_by']}, library {res['library_ms']}")
+    return res
+
+
+def time_k1_launches(nms_cuda, boxes, valid, t):
+    """One K1 call with the host's enqueue (ms, as every kernel is
+    timed), and its device time (the queue filled ahead) whole and launch
+    by launch."""
+    mask = nms_cuda.pair_mask_words_cuda(boxes, t)
+    return dict(
+        ms=cuda_ms(lambda: nms_cuda.greedy_nms_mask_cuda(boxes, valid, t)),
+        device_ms=cuda_ms(lambda: nms_cuda.greedy_nms_mask_cuda(boxes, valid,
+                                                                t),
+                          queue_ahead=True),
+        mask_ms=cuda_ms(lambda: nms_cuda.pair_mask_words_cuda(boxes, t),
+                        queue_ahead=True),
+        scan_ms=cuda_ms(lambda: nms_cuda.scan_mask_words_cuda(mask, valid),
+                        queue_ahead=True))
+
+
+def time_k1_suppressed(nms_cuda, plain):
+    """K1 on the suppression-heavy input (checked in phase 2), timed whole
+    and launch by launch."""
+    boxes, valid, t = nms_suppressed_case()
+    bx, vd = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+    kept = int(nms_cuda.greedy_nms_mask_cuda(bx, vd, t).sum())
+    res = dict(b=16, k=2048, t=t, valid=int(valid.sum()), kept=kept,
+               **time_k1_launches(nms_cuda, bx, vd, t),
+               plain_ms=cuda_ms(lambda: plain(bx, vd, t), iters=5))
+    log(f"[kernel] suppression-heavy input B=16 K=2048 t={t} "
+        f"({res['valid']} valid, {kept} kept): K1 {res['ms']:.4f} ms with "
+        f"the host's enqueue, device {res['device_ms']:.4f} ms (mask "
+        f"launch {res['mask_ms']:.4f}, scan launch {res['scan_ms']:.4f}), "
+        f"plain {res['plain_ms']:.4f} ms")
+    return res
 
 
 def phase_main(cfg, nms_cuda, postprocess_mod, Predictor, report):
@@ -644,6 +788,8 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain,
                                      f"the plan has {n_plan}")
             ms = cuda_ms(lambda: csp_cuda.fused_csp_stage_cuda(
                 nhwc, folded, nb, packed))
+            device_ms = cuda_ms(lambda: csp_cuda.fused_csp_stage_cuda(
+                nhwc, folded, nb, packed), queue_ahead=True)
             plain_ms = cuda_ms(lambda: plain(nhwc, folded, nb), iters=5)
             body_ms = cuda_ms(lambda: stage.body(xb))
             cudnn_ms = cuda_ms(cudnn_convs(nhwc, folded))
@@ -653,12 +799,13 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain,
             per_stage.append(dict(
                 stage=name, shape=list(nhwc.shape), num_blocks=nb,
                 conv_launches=n_conv, gemms=len(packed) // 2, ms=ms,
-                plain_ms=plain_ms, default_body_ms=body_ms,
+                device_ms=device_ms, plain_ms=plain_ms, default_body_ms=body_ms,
                 cudnn_convs_ms=cudnn_ms, bound_ms=bound_ms,
                 bound_by=bound_by, plan_bound_ms=pbound_ms,
                 plan_bound_by=pbound_by, tflops=tflops, **res))
             log(f"[fused] {name} {tuple(nhwc.shape)} nb={nb}: K2 {ms:.4f} ms "
-                f"in {n_conv} conv launches ({tflops:.1f} TFLOP/s), plain "
+                f"(device {device_ms:.4f} ms) in {n_conv} conv launches "
+                f"({tflops:.1f} TFLOP/s), plain "
                 f"{plain_ms:.4f} ms, default body {body_ms:.4f} ms, cuDNN "
                 f"convs alone {cudnn_ms:.4f} ms, bound {bound_ms:.4f} ms by "
                 f"{bound_by}, plan bound {pbound_ms:.4f} ms by {pbound_by}")
@@ -782,28 +929,17 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     report = {}
     build_kernels([nms_cuda, csp_cuda], report)
+    k1_build_report(nms_cuda, report)
     k2_build_report(csp_cuda, kernel_widths, report)
 
-    err = phase_kernel_cases(nms_cuda, greedy_nms_mask)
+    err = phase_kernel_cases(nms_cuda, greedy_nms_mask, report)
 
     cfg = load_config(None)
     captured, launches = phase_main(cfg, nms_cuda, postprocess_mod,
                                     Predictor, report)
-    boxes, valid, t = captured[0]
-    b, k, _ = boxes.shape
-    want = greedy_nms_mask(boxes, valid, t)
-    got = nms_cuda.greedy_nms_mask_cuda(boxes, valid, t)
-    if not torch.equal(got, want):
-        raise AssertionError("K1 differs from the plain version on the main "
-                             "path's NMS input")
-    ms = cuda_ms(lambda: nms_cuda.greedy_nms_mask_cuda(boxes, valid, t))
-    plain_ms = cuda_ms(lambda: greedy_nms_mask(boxes, valid, t), iters=5)
-    library_ms = library_nms_ms(boxes, valid, t)
-    bound_ms, bound_by = nms_bound(b, k)
-    log(f"[kernel] main-path input B={b} K={k} t={t} "
-        f"({int(valid.sum())} valid, {int(got.sum())} kept): K1 {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, "
-        f"library {library_ms}")
+    k1 = time_k1(nms_cuda, greedy_nms_mask, *captured[0])
+    k1["suppressed"] = time_k1_suppressed(nms_cuda, greedy_nms_mask)
+    report["k1"] = k1
 
     phase_device_vs_cpu(Config, build_model, report)
     phase_detect(detect_mod, nms_cuda, report)
@@ -824,11 +960,18 @@ def main() -> int:
         "replaces": "yolov4_tpu/ops/nms_pallas.py:140",
         "launches": launches,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+        # device times (a spin kernel queued ahead); ms and ms_suppressed
+        # include the host's enqueue
+        "device_ms": k1["device_ms"],
+        "mask_ms": k1["mask_ms"],
+        "scan_ms": k1["scan_ms"],
+        "ms_suppressed": k1["suppressed"]["ms"],
+        "device_ms_suppressed": k1["suppressed"]["device_ms"],
     }, {
         # one entry for the three stage bodies of a forward: times and
         # bounds are their sums, per_stage holds each
@@ -839,6 +982,7 @@ def main() -> int:
         "launches": k2_launches,
         "max_abs_err": max(r["max_abs_err"] for r in stages),
         "ms": sum(r["ms"] for r in stages),
+        "device_ms": sum(r["device_ms"] for r in stages),
         "plain_ms": sum(r["plain_ms"] for r in stages),
         "bound_ms": sum(r["bound_ms"] for r in stages),
         "bound_by": "operations" if all(r["bound_by"] == "operations"

@@ -59,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -345,37 +347,7 @@ constexpr unsigned EMPTY_ARRIVALS = CONSUMER_THREADS / 32;  // one per warp
 // launch kinds, in the order of ops/csp.py::launch_plan
 enum Kind { CSP0_FIRST, CSP0_LAST, CSP_FIRST, CSP_MID, CSP_LAST };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
+using namespace ptx;  // smem_u32, mbar_*, bulk_copy (ptx.cuh)
 
 // arrives on `bar` once this thread's earlier cp.async copies have landed
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
@@ -396,15 +368,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -989,7 +952,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(ring.full(s), FULL_ARRIVALS);
       mbar_init(ring.empty(s), EMPTY_ARRIVALS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 

@@ -25,7 +25,8 @@ from yolov4_tpu_torch.ops.csp import (KERNEL_WIDTHS, Folded,
                                       kernel_gemm_shapes, kernel_widths,
                                       pack_weights)
 from yolov4_tpu_torch.ops.cuda_build import (ARCH_FLAGS, COMMON_FLAGS,
-                                             CSRC_DIR, build_library)
+                                             CSRC_DIR, build_library,
+                                             ptxas_report)
 
 SOURCE = CSRC_DIR / "csp.cu"
 # -Xptxas -v: registers, shared memory and spills of each kernel, in the
@@ -79,30 +80,21 @@ def kernel_report() -> list:
     such as C7512, wgmma serialised), and the dynamic shared memory the
     launch asks for."""
     lib = _load()
-    log = build().with_suffix(".log").read_text().splitlines()
+    log = build().with_suffix(".log").read_text()
     name = re.compile(r"csp_wgmma_kernelILi(\d)ELi(\d+)E")
     notes = {}
-    for line in log:
+    for line in log.splitlines():
         code, m = re.search(r"\((C\d+)\)", line), name.search(line)
         if code and m:
             notes.setdefault(m.groups(), []).append(code.group(1))
-    rows, row = [], None
-    for line in log:
-        m = name.search(line)
-        if "Compiling entry function" in line:
-            row = None
-            if m:
-                kind, cp = int(m.group(1)), int(m.group(2))
-                row = dict(kind=KINDS[kind], cp=cp,
-                           dynamic_smem=lib.csp_wgmma_smem(kind, cp),
-                           notes=notes.get(m.groups(), []))
-                rows.append(row)
-        elif row is not None and "registers" in line:
-            row["registers"] = int(re.search(r"Used (\d+) registers",
-                                             line).group(1))
-        elif row is not None and "spill stores" in line:
-            row["stack"], row["spill_stores"], row["spill_loads"] = map(
-                int, re.findall(r"(\d+) bytes", line)[:3])
+    rows = []
+    for row in ptxas_report(log, "csp_wgmma_kernel"):
+        m = name.search(row.pop("name"))
+        row.pop("static_smem")  # the ring is dynamic shared memory
+        kind, cp = int(m.group(1)), int(m.group(2))
+        rows.append(dict(kind=KINDS[kind], cp=cp,
+                         dynamic_smem=lib.csp_wgmma_smem(kind, cp),
+                         notes=notes.get(m.groups(), []), **row))
     return rows
 
 

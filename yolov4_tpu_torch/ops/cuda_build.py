@@ -1,8 +1,10 @@
 """Build a kernel source of ``csrc/`` into a shared library with ``nvcc``.
 
 Each library is compiled on first use into ``yolov4_tpu_torch/_build/``
-under a name keyed by a hash of its source and flags, so an edited source
-or a changed flag builds anew and an unchanged one is reused. The sources
+under a name keyed by a hash of its source, the headers of its directory
+that it includes (``#include "name"``, followed through the headers), and
+its flags, so an edited source or header or a changed flag builds anew and
+an unchanged one is reused. The sources
 have a plain C interface and include no PyTorch header: a build takes
 seconds, and the wrappers bind them with ``ctypes``. The compiler's output
 (with ``-Xptxas -v``, each kernel's registers, shared memory and spills)
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,13 +37,33 @@ def nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def build_key(source: Path, flags: Sequence[str]) -> str:
+    """Hash of ``source``, every header beside it that it includes (quoted
+    includes, followed through those headers, each hashed once) and
+    ``flags``."""
+    digest = hashlib.sha256()
+    seen, todo = set(), [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(path.name.encode() + b"\0" + text + b"\0")
+        todo += [path.parent / name.decode()
+                 for name in _LOCAL_INCLUDE.findall(text)]
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:16]
+
+
 def build_library(source: Path, flags: Sequence[str]) -> Path:
-    """Compile ``source`` with ``flags`` unless a library for this source
-    and these flags is already built; return its path. A failed build
-    raises ``RuntimeError`` with the compiler's output."""
-    src = source.read_bytes()
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{source.stem}_{key}.so"
+    """Compile ``source`` with ``flags`` unless a library for this source,
+    its headers and these flags is already built; return its path. A failed
+    build raises ``RuntimeError`` with the compiler's output."""
+    out = BUILD_DIR / f"lib{source.stem}_{build_key(source, flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -53,3 +76,25 @@ def build_library(source: Path, flags: Sequence[str]) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(log: str, name_part: str) -> list:
+    """Each kernel whose mangled name holds ``name_part``, as ``-Xptxas -v``
+    reports it in a build log: name, registers, static shared memory,
+    stack and spill bytes."""
+    rows, row = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            row = dict(name=name) if name_part in name else None
+            if row is not None:
+                rows.append(row)
+        elif row is not None and "Used" in line and "registers" in line:
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            row["static_smem"] = int(smem.group(1)) if smem else 0
+        elif row is not None and "spill stores" in line:
+            row["stack"], row["spill_stores"], row["spill_loads"] = map(
+                int, re.findall(r"(\d+) bytes", line)[:3])
+    return rows
