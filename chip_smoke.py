@@ -60,6 +60,23 @@ line:
                width with PALLAS_CSP on, batch 16, conf 0.001, on a
                synthetic COCO val2017 of 32 images: finite AP in [0, 1],
                AP50 >= AP, K1 once and K2 three times per batch.
+  9. train   — the train step at WIDTH 0.25, 128x128, batch 4, float32
+               (TF32 off), SGD, ACCUMULATION_STEPS 2: two micro-steps on
+               the card against the same two on the CPU from one seed
+               (loss, the parameters' change as a whole and per tensor,
+               and BN buffers within TRAIN_TOL_*).
+ 10. train   — full width, 608x608, batch 8, bfloat16 autocast over
+     full      float32 weights, Adam: 3 warm steps, then 20 timed with
+               CUDA events (ms per step, img/s, peak memory, the share of
+               the bf16 peak that the model's FLOPs reach, train FLOPs =
+               3x the forward's conv FLOPs); a fresh model's 30 steps on
+               one batch without warmup (finite, falling loss); then
+               ``Trainer.fit`` on a synthetic COCO (64 train2017 JPEGs,
+               mosaic, 4 loader workers; 16 val2017 images, PALLAS_CSP on;
+               ACCUMULATION_STEPS 2; 2 epochs) with K1 and K2 counted in
+               its validations, and a resume from its checkpoint for a
+               third epoch (epoch, step and best AP carried over); the
+               Trainer's own img/s, loader included, beside the step's.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -75,6 +92,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -102,6 +120,22 @@ K2_TOL_BF16 = 0.05
 # ... and the bfloat16 kernel's mean |error| against a float32 evaluation of
 # the same function may exceed the plain bfloat16 version's by this factor
 K2_TOL_BF16_VS_F32 = 1.25
+# The train step on the card (TF32 off) against the CPU, float32, two
+# micro-steps: the loss, relative; the parameters' change over the whole
+# model, as the L2 norm of the difference over the L2 norm of the CPU's
+# change, and in each tensor, against the largest change in it; the BN
+# buffers, relative and absolute. Two convolution backends differ in
+# summation order only, but a float32 train step from the reference init
+# can be ill-conditioned: for some init seeds float32 and float64 on the
+# CPU alone give changes 1-2% apart in L2 and single tensors up to 15% of
+# their largest change. Init seed 1 is a well-conditioned instance there
+# (5.3e-4 in L2, 0.76% in the worst tensor), so that a gap on the card
+# shows.
+TRAIN_SEED = 1
+TRAIN_TOL_LOSS = 1e-4
+TRAIN_TOL_UPDATE_L2 = 1e-2
+TRAIN_TOL_UPDATE_TENSOR = 5e-2
+TRAIN_TOL_BUF = (1e-3, 1e-5)
 # The fused bfloat16 forward against the default one, decoded: both round to
 # bfloat16 at different points (the default path rounds conv outputs, BN and
 # each Mish step; K2 keeps them in float32), so each is held against a
@@ -842,13 +876,14 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain,
     return per_stage
 
 
-def write_val2017(work, coco_ids, n_images=32):
-    """A synthetic COCO val2017 of mixed-size JPEGs with filled boxes."""
+def write_val2017(work, coco_ids, n_images=32, name="val2017", seed=7):
+    """A synthetic COCO split (val2017 unless ``name`` says otherwise) of
+    mixed-size JPEGs with 1-4 filled boxes each."""
     import cv2
-    img_dir = work / "images" / "val2017"
+    img_dir = work / "images" / name
     img_dir.mkdir(parents=True)
-    (work / "annotations").mkdir()
-    rng = np.random.default_rng(7)
+    (work / "annotations").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
     sizes = ((480, 640), (640, 480), (375, 500), (608, 608), (427, 640),
              (720, 1280), (333, 500), (512, 384))
     images, anns = [], []
@@ -865,12 +900,12 @@ def write_val2017(work, coco_ids, n_images=32):
                          "category_id": int(coco_ids[rng.integers(0, 80)]),
                          "bbox": [x0, y0, bw, bh], "area": bw * bh,
                          "iscrowd": 0})
-        name = f"{i + 1:012}.jpg"
-        if not cv2.imwrite(str(img_dir / name), img):
+        file_name = f"{i + 1:012}.jpg"
+        if not cv2.imwrite(str(img_dir / file_name), img):
             raise OSError("cannot write a test JPEG")
-        images.append({"id": i + 1, "file_name": name, "height": h,
+        images.append({"id": i + 1, "file_name": file_name, "height": h,
                        "width": w})
-    with open(work / "annotations" / "instances_val2017.json", "w") as f:
+    with open(work / "annotations" / f"instances_{name}.json", "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": c, "name": str(c)}
                                   for c in coco_ids]}, f)
@@ -908,6 +943,239 @@ def phase_val(val_mod, coco_ids, nms_cuda, csp_cuda, report):
     return k2
 
 
+def small_train_batches(device):
+    """Two batches at 128x128, batch 4: images from a seed, three boxes per
+    image on three different scales (so that no two share an anchor cell,
+    where the written box would depend on the device's write order)."""
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(2):
+        imgs = torch.from_numpy(rng.random((4, 128, 128, 3),
+                                           dtype=np.float32))
+        labels = np.zeros((4, 60, 5), np.float32)
+        for b in range(4):
+            cx, cy = rng.uniform(30, 98, 2)
+            labels[b, 0] = [cx, cy, 14, 18, rng.integers(80)]     # stride 8
+            labels[b, 1] = [128 - cx, cy, 60, 50, rng.integers(80)]
+            labels[b, 2] = [64, 64, 120, 110, rng.integers(80)]  # stride 32
+        out.append((imgs.to(device), torch.from_numpy(labels).to(device)))
+    return out
+
+
+def phase_train_vs_cpu(cfg_cls, build_model, train, report):
+    """The train step at WIDTH 0.25 in float32 (TF32 off) on the card and on
+    the CPU: SGD, ACCUMULATION_STEPS 2, two micro-steps from one seed."""
+    cfg = cfg_cls.from_dict({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "OPTIMIZER": {"TYPE": "SGD", "LR": 0.01},
+        "TRAIN": {"ACCUMULATION_STEPS": 2}})
+    runs = {}
+    with tf32_off():
+        for device in ("cpu", "cuda"):
+            model = build_model(cfg, device=device, train=True,
+                                generator=torch.Generator().manual_seed(
+                                    TRAIN_SEED))
+            init = {k: v.detach().cpu().clone()
+                    for k, v in model.state_dict().items()}
+            opt = train.build_optimizer(cfg, model)
+            step = train.make_train_step(
+                model, train.build_criterion(cfg), opt,
+                train.build_lr_schedule(cfg, len_epoch=4),
+                accumulation_steps=2)
+            state = train.create_train_state(model)
+            losses = []
+            for imgs, labels in small_train_batches(device):
+                state = step(state, imgs, labels)
+                losses.append(float(state.loss))
+            runs[device] = (losses, init, {k: v.detach().cpu() for k, v in
+                                           model.state_dict().items()})
+            del model, opt, step
+    (cpu_loss, init, cpu_sd), (gpu_loss, _, gpu_sd) = runs["cpu"], runs["cuda"]
+    params = dict(build_model(cfg, device="cpu").named_parameters())
+    diff2 = ref2 = worst_tensor = worst_buf = 0.0
+    worst_name, bad = "", []
+    for key, want in cpu_sd.items():
+        got = gpu_sd[key]
+        if key in params:
+            upd_want = (want - init[key]).double()
+            upd_diff = (got - init[key]).double() - upd_want
+            diff2 += float(upd_diff.square().sum())
+            ref2 += float(upd_want.square().sum())
+            rel = float(upd_diff.abs().max() / upd_want.abs().max())
+            if rel > worst_tensor:
+                worst_tensor, worst_name = rel, key
+        elif key.endswith(("running_mean", "running_var")):
+            rtol, atol = TRAIN_TOL_BUF
+            worst_buf = max(worst_buf, float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=rtol, atol=atol):
+                bad.append(key)
+        elif not torch.equal(got, want):
+            bad.append(key)
+    update_l2 = (diff2 / ref2) ** 0.5
+    loss_rel = float(np.max(np.abs(np.subtract(gpu_loss, cpu_loss))
+                            / np.abs(cpu_loss)))
+    log(f"[train] WIDTH 0.25 f32 at 128, batch 4, SGD, 2 micro-steps, init "
+        f"seed {TRAIN_SEED}: card vs CPU loss {gpu_loss} vs {cpu_loss} "
+        f"({loss_rel:.3g} apart, tol {TRAIN_TOL_LOSS}); parameter change "
+        f"{update_l2:.3g} apart in L2 (tol {TRAIN_TOL_UPDATE_L2}), worst "
+        f"tensor {worst_name} {worst_tensor:.3g} of its largest change (tol "
+        f"{TRAIN_TOL_UPDATE_TENSOR}); worst BN buffer |diff| {worst_buf:.3g}")
+    if (loss_rel > TRAIN_TOL_LOSS or not update_l2 <= TRAIN_TOL_UPDATE_L2
+            or worst_tensor > TRAIN_TOL_UPDATE_TENSOR or bad):
+        raise AssertionError(f"train step on the card against the CPU out "
+                             f"of tolerance (buffers off: {bad})")
+    report["train_vs_cpu"] = dict(card_loss=gpu_loss, cpu_loss=cpu_loss,
+                                  update_l2_rel=update_l2,
+                                  worst_tensor_rel=worst_tensor,
+                                  worst_buffer_abs=worst_buf)
+
+
+def phase_train_full(cfg_cls, build_model, train, report):
+    """The full-width train step at 608/b8, bfloat16 autocast over float32
+    weights, Adam: timed, then a fresh model's loss over 30 steps."""
+    from yolov4_tpu_torch.tools.profile_train import (forward_conv_flops,
+                                                      random_batch)
+    batch, size = 8, 608
+    cfg = cfg_cls.from_dict({
+        "DATA": {"BATCH_SIZE": batch},
+        "MODEL": {"COMPUTE_DTYPE": "bfloat16"},
+        "OPTIMIZER": {"TYPE": "ADAM"},
+        "LR_SCHEDULER": {"IS_WARMUP": False}})
+    images, labels = random_batch(batch, size, seed=2, device="cuda")
+
+    def build(seed):
+        model = build_model(cfg, device="cuda", train=True,
+                            generator=torch.Generator().manual_seed(seed))
+        model = model.to(memory_format=torch.channels_last)
+        step = train.make_train_step(
+            model, train.build_criterion(cfg),
+            train.build_optimizer(cfg, model),
+            train.build_lr_schedule(cfg, len_epoch=100),
+            accumulation_steps=1, compute_dtype=torch.bfloat16)
+        return model, step, train.create_train_state(model)
+
+    model, step, state = build(0)
+    params = sum(p.numel() for p in model.parameters())
+    flops = 3.0 * forward_conv_flops(model, train.images_to_input(images))
+    for _ in range(3):
+        state = step(state, images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        state = step(state, images, labels)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    share = flops / (step_ms * 1e-3) / PEAK_BF16_OPS
+    log(f"[train full] YOLOv4 {params:,} params, 608/b{batch}, bf16 "
+        f"autocast, f32 weights, Adam: {step_ms:.3f} ms per step "
+        f"({batch * 1e3 / step_ms:.1f} img/s), peak memory "
+        f"{peak_gib:.2f} GiB, {flops / 1e12:.3f} TFLOP per step "
+        f"({share:.2%} of the bf16 dense peak)")
+    del model, step, state
+    torch.cuda.empty_cache()
+
+    model, step, state = build(1)
+    losses = []
+    for _ in range(30):
+        state = step(state, images, labels)
+        losses.append(float(state.loss))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train loss over 30 steps: {losses}")
+    log(f"[train full] 30 steps on one batch, no warmup: loss "
+        f"{' '.join(f'{v:.2f}' for v in losses)}")
+    del model, step, state
+    torch.cuda.empty_cache()
+    report["train_full"] = dict(
+        params=params, batch=batch, img_size=size, step_ms=step_ms,
+        img_s=batch * 1e3 / step_ms, peak_memory_gib=peak_gib,
+        train_tflop=flops / 1e12, flop_share_bf16=share, losses=losses)
+
+
+def phase_trainer(Trainer, nms_cuda, csp_cuda, coco_ids, report):
+    """``Trainer.fit`` at full width on a synthetic COCO, then a resume from
+    its checkpoint; returns (K1, K2) launches in their validations."""
+    work = ROOT / "runs" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    n_train, n_val, batch, epochs = 64, 16, 8, 2
+    steps, n_val_batches = n_train // batch, n_val // batch
+    write_val2017(work, coco_ids, n_train, name="train2017", seed=8)
+    write_val2017(work, coco_ids, n_val, name="val2017", seed=9)
+    from yolov4_tpu_torch.config import Config
+    raw = {"DATA": {"BATCH_SIZE": batch, "WORKERS": 4},
+           "MODEL": {"PALLAS_CSP": True},
+           "AUGMENTATION": {"IS_MOSAIC": True},
+           "TEST": {"BATCH_SIZE": batch},
+           "TRAIN": {"ACCUMULATION_STEPS": 2, "MAX_EPOCHS": epochs,
+                     "OUTPUT_DIR": str(work / "out")}}
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    t0 = time.time()
+    trainer = Trainer(Config.from_dict(raw), str(work), device="cuda",
+                      print_freq=4)
+    trainer.fit()
+    fit_s = time.time() - t0
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    if k1 != epochs * n_val_batches or k2 != 3 * epochs * n_val_batches:
+        raise AssertionError(f"Trainer: K1 launched {k1}, K2 {k2} times in "
+                             f"{epochs} validations of {n_val_batches} "
+                             f"batches")
+    if trainer.state.step != epochs * steps:
+        raise AssertionError(f"Trainer took {trainer.state.step} steps")
+    with open(work / "out" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    epoch_rows = [r for r in rows if r["kind"] == "train_epoch"]
+    losses = [r["loss"] for r in rows if r["kind"] == "train"]
+    if not np.isfinite(losses).all() or len(epoch_rows) != epochs:
+        raise AssertionError(f"Trainer records: {rows}")
+    best_ap50 = trainer.best_ap50
+    ckpt = work / "out" / "checkpoint.pth"
+    del trainer
+    torch.cuda.empty_cache()
+
+    raw["TRAIN"]["MAX_EPOCHS"] = epochs + 1
+    resumed = Trainer(Config.from_dict(raw), str(work), resume=str(ckpt),
+                      device="cuda", print_freq=4)
+    carried = (resumed.start_epoch, resumed.state.step, resumed.best_ap50)
+    if carried != (epochs, epochs * steps, best_ap50):
+        raise AssertionError(f"resume carried (epoch, step, best AP50) "
+                             f"{carried}, expected "
+                             f"{(epochs, epochs * steps, best_ap50)}")
+    resumed.fit()
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    if (resumed.state.step != (epochs + 1) * steps
+            or k1 != (epochs + 1) * n_val_batches or k2 != 3 * k1):
+        raise AssertionError(f"resumed run: step {resumed.state.step}, K1 "
+                             f"{k1}, K2 {k2}")
+    with open(work / "out" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    epoch_rows = [r for r in rows if r["kind"] == "train_epoch"]
+    evals = [r for r in rows if r["kind"] == "eval"]
+    del resumed
+    torch.cuda.empty_cache()
+    img_s = [r["img_s"] for r in epoch_rows]
+    log(f"[trainer] full width, 608, batch {batch}, mosaic, 4 workers, "
+        f"ACCUMULATION_STEPS 2, PALLAS_CSP val: 2 epochs in {fit_s:.1f}s, "
+        f"then resumed at epoch {carried[0] + 1} step {carried[1]} best AP50 "
+        f"{carried[2]} for a third; K1 {k1}, K2 {k2} launches in 3 "
+        f"validations; Trainer img/s per epoch (loader included) "
+        f"{[round(v, 2) for v in img_s]}; AP50 per epoch "
+        f"{[r['ap50'] for r in evals]}")
+    report["trainer"] = dict(fit_seconds=fit_s, epochs=epochs + 1,
+                             k1_launches=k1, k2_launches=k2,
+                             epoch_img_s=img_s, resumed_from=carried,
+                             ap50=[r["ap50"] for r in evals])
+    shutil.rmtree(work, ignore_errors=True)
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -918,12 +1186,18 @@ def main() -> int:
     from yolov4_tpu_torch.config import Config, load_config
     from yolov4_tpu_torch.data.coco import COCO_CLASS_IDS
     from yolov4_tpu_torch.engine.predictor import Predictor
+    from yolov4_tpu_torch.engine.trainer import Trainer
     from yolov4_tpu_torch.models import build_model
     from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
     from yolov4_tpu_torch.ops import postprocess as postprocess_mod
     from yolov4_tpu_torch.ops.csp import (fused_csp_stage_plain,
                                           kernel_widths, launch_plan)
+    from yolov4_tpu_torch.ops.loss import build_criterion
     from yolov4_tpu_torch.ops.nms import greedy_nms_mask
+    from yolov4_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from yolov4_tpu_torch.parallel.train_step import (create_train_state,
+                                                      images_to_input,
+                                                      make_train_step)
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -948,6 +1222,14 @@ def main() -> int:
                          fused_csp_stage_plain, launch_plan, report)
     k2_launches = phase_val(val_mod, COCO_CLASS_IDS, nms_cuda, csp_cuda,
                             report)
+    train = SimpleNamespace(
+        build_criterion=build_criterion, build_optimizer=build_optimizer,
+        build_lr_schedule=build_lr_schedule, make_train_step=make_train_step,
+        create_train_state=create_train_state, images_to_input=images_to_input)
+    phase_train_vs_cpu(Config, build_model, train, report)
+    phase_train_full(Config, build_model, train, report)
+    trainer_k1, trainer_k2 = phase_trainer(Trainer, nms_cuda, csp_cuda,
+                                           COCO_CLASS_IDS, report)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -958,7 +1240,9 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/nms.cu",
         "replaces": "yolov4_tpu/ops/nms_pallas.py:140",
-        "launches": launches,
+        # the detection path's batches and the Trainer's validations
+        "launches": launches + trainer_k1,
+        "launches_in_trainer": trainer_k1,
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -979,7 +1263,9 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/csp.cu",
         "replaces": "yolov4_tpu/ops/csp_pallas.py:344",
-        "launches": k2_launches,
+        # val's batches and the Trainer's validations
+        "launches": k2_launches + trainer_k2,
+        "launches_in_trainer": trainer_k2,
         "max_abs_err": max(r["max_abs_err"] for r in stages),
         "ms": sum(r["ms"] for r in stages),
         "device_ms": sum(r["device_ms"] for r in stages),

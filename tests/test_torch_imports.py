@@ -35,7 +35,10 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
     for name in ("ops.nms_cuda", "detect", "ops.csp", "ops.csp_cuda",
                  "ops.cuda_build", "eval.cocoeval", "data.coco",
                  "data.pipeline", "engine.evaluator", "utils.logging",
-                 "utils.metrics", "val"):
+                 "utils.metrics", "val", "ops.loss", "optim.optimizers",
+                 "optim.schedules", "parallel.train_step",
+                 "utils.checkpoint", "utils.profiling", "engine.trainer",
+                 "train"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]
     assert len(result["modules"]) >= 30
     assert result["forbidden"] == []

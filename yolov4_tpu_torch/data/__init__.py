@@ -1,1 +1,1 @@
-"""Eval-time data transforms."""
+"""COCO data, transforms and the host loader."""

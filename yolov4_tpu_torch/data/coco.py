@@ -1,21 +1,23 @@
-"""COCO val2017 for evaluation: a first-party annotation index and the eval
-dataset, the port's copies of the JAX package's data/coco.py (eval part).
+"""COCO: a first-party annotation index and the detection dataset, the
+port's copies of the JAX package's data/coco.py.
 
 ``COCOIndex`` is the pycocotools.coco.COCO subset the evaluator needs:
 images, per-image annotations (crowds included, the reference's
 ``getAnnIds(iscrowd=None)``) and categories. ``COCODataset`` reads
-``root/images/val2017/{id:012}.jpg`` and ``root/annotations/
-instances_val2017.json`` (reference cocodataset.py:58-156): boxes kept
-when wider and taller than 1 pixel and in class range, rows reversed
-against file order (the reference's ``insert(0, ...)``). Training splits
-and their sampling (mosaic) wait for the training slice.
+``root/images/{name}/{id:012}.jpg`` and ``root/annotations/
+instances_{train,val}2017.json`` (reference cocodataset.py:58-156): boxes
+kept when wider and taller than 1 pixel and in class range, rows reversed
+against file order (the reference's ``insert(0, ...)``); in training with
+mosaic, three extra images drawn at random, each redrawn until it has
+labels; a mutable ``img_size`` for multi-scale schedules.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+import random
+from typing import Dict, List, Optional
 
 import cv2
 import numpy as np
@@ -77,40 +79,60 @@ class COCOIndex:
 
 
 class COCODataset:
-    """COCO val2017 over its directory layout (reference
-    cocodataset.py:58-156, ``is_train=False``).
+    """A COCO split over its directory layout (reference
+    cocodataset.py:58-156). The port's default is val2017 for evaluation
+    (its first callers); the JAX package's is train2017.
 
     ``dataset[i]`` -> (image, target): the transform's output for image i
-    and its labels, with ``target['img_info']`` extended by [img_id, i].
+    (and, in training with mosaic, three random others) and its labels,
+    with ``target['img_info']`` extended by [img_id, i].
     """
 
     MIN_SIZE = 1  # boxes must be wider and taller than this, in pixels
 
     def __init__(self, root: str, img_size: int, transform,
-                 num_classes: int = 80):
+                 num_classes: int = 80, name: str = "val2017",
+                 is_train: bool = False, seed: Optional[int] = None):
         self.root = root
+        self.name = name
         self.img_size = img_size
         self.transform = transform
         self.num_classes = num_classes
-        annotation_file = os.path.join(root, "annotations",
-                                       "instances_val2017.json")
+        self.is_train = is_train
+        if "train" in name:
+            json_file = "instances_train2017.json"
+        elif "val" in name:
+            json_file = "instances_val2017.json"
+        else:
+            raise ValueError(f"{name} does not match any files")
+        annotation_file = os.path.join(root, "annotations", json_file)
         if not os.path.isfile(annotation_file):
             raise FileNotFoundError(
                 f"COCO annotations not found: {annotation_file} — expected "
-                f"layout: {root}/annotations/instances_val2017.json + "
-                f"{root}/images/val2017/*.jpg")
+                f"layout: {root}/annotations/{json_file} + "
+                f"{root}/images/{name}/*.jpg")
         self.coco = COCOIndex(annotation_file)
         self.ids = self.coco.get_img_ids()
         self.class_ids = sorted(self.coco.get_cat_ids())
+        self._py_rng = random.Random(seed)
 
     def __len__(self) -> int:
         return len(self.ids)
 
-    def img_path(self, img_id: int) -> str:
-        return os.path.join(self.root, "images", "val2017", f"{img_id:012}.jpg")
+    def seed(self, seed: Optional[int]) -> None:
+        """Re-seed the mosaic draws and the transform's generators."""
+        self._py_rng = random.Random(seed)
+        if self.transform is not None and hasattr(self.transform, "seed"):
+            self.transform.seed(seed)
 
-    def get_img_and_labels(self, index: int):
-        """(BGR uint8 image, [N, 5] tlwh+cls float array, img_id)."""
+    def img_path(self, img_id: int) -> str:
+        return os.path.join(self.root, "images", self.name, f"{img_id:012}.jpg")
+
+    def get_img_and_labels(self, index: Optional[int] = None):
+        """(BGR uint8 image, [N, 5] tlwh+cls float array, img_id); a random
+        image when ``index`` is None."""
+        if index is None:
+            index = self._py_rng.randrange(len(self.ids))
         img_id = self.ids[index]
         path = self.img_path(img_id)
         img = cv2.imread(path)
@@ -130,6 +152,32 @@ class COCODataset:
 
     def __getitem__(self, index: int):
         img, bboxes, img_id = self.get_img_and_labels(index)
-        out_img, target = self.transform([img], [bboxes], self.img_size)
+        img_list, bboxes_list = [img], [bboxes]
+        if self.is_train and getattr(self.transform, "is_mosaic", False):
+            for _ in range(3):
+                # the reference redraws until the extra image has labels
+                # (cocodataset.py:124-133); a dataset where none has any
+                # fails here instead of hanging a loader worker
+                extra_img, extra_boxes, _ = self.get_img_and_labels()
+                tries = 0
+                while len(extra_boxes) == 0:
+                    tries += 1
+                    if tries > max(1000, 4 * len(self)):
+                        raise RuntimeError(
+                            "mosaic: no image with surviving labels found "
+                            f"after {tries} draws — every annotation is "
+                            "filtered out (min_size/class filters); "
+                            "disable AUGMENTATION.IS_MOSAIC or fix the "
+                            "dataset")
+                    extra_img, extra_boxes, _ = self.get_img_and_labels()
+                img_list.append(extra_img)
+                bboxes_list.append(extra_boxes)
+        out_img, target = self.transform(img_list, bboxes_list, self.img_size)
         target["img_info"] = list(target["img_info"]) + [img_id, index]
         return out_img, target
+
+    def set_img_size(self, img_size: int) -> None:
+        self.img_size = img_size
+
+    def get_img_size(self) -> int:
+        return self.img_size

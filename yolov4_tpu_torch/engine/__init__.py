@@ -1,1 +1,1 @@
-"""Inference engine."""
+"""Inference, evaluation and training engines."""

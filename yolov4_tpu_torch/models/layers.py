@@ -56,9 +56,37 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode running-variance update uses the
+    BIASED batch variance, as flax's BatchNorm does (the JAX package's
+    models/layers.py:728-739): ra = 0.9 ra + 0.1 batch. Torch's own update
+    blends in the unbiased variance, n / (n - 1) times larger, which
+    drifts the running statistics at every step. The normalization, eps,
+    state_dict keys and the eval path are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        # torch's update goes into a copy (autograd keeps the running
+        # buffers it was given, so the one it saw must not change), which
+        # then holds (1 - m) var_old + m var n / (n - 1): scale the second
+        # term back to m var
+        blended = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, blended, self.weight,
+                         self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_var.copy_(torch.lerp(kept, blended, (n - 1) / n))
+        return y
+
+
 class ConvBNAct(nn.Module):
     """Conv2d (symmetric ``(k-1)//2`` padding) + optional BatchNorm
-    (eps 1e-5, momentum 0.1) + activation (reference darknet.py:23-58)."""
+    (eps 1e-5, momentum 0.1, flax's running-variance update) + activation
+    (reference darknet.py:23-58)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, bias: bool = False, bn: bool = True,
@@ -68,7 +96,7 @@ class ConvBNAct(nn.Module):
             raise ValueError(f"{act} does not support.")
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
                               padding=(kernel_size - 1) // 2, bias=bias)
-        self.norm = (nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
+        self.norm = (BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
                      if bn else None)
         self.act = ACTIVATIONS[act]
 

@@ -27,10 +27,59 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, c, h * 2, w * 2)
 
 
-def maxpool_same(x: torch.Tensor, size: int) -> torch.Tensor:
+class _MaxPoolSplitTies(torch.autograd.Function):
+    """Stride-1 same-padded max pooling whose backward SPLITS each window's
+    gradient equally among its maximal positions: the JAX package's default
+    ``maxpool_same`` VJP (models/neck.py:34-90). Ties are not rare under
+    bfloat16. The forward is ``F.max_pool2d``."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        y = F.max_pool2d(x, size, stride=1, padding=size // 2)
+        ctx.save_for_backward(x, y)
+        ctx.size = size
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        size = ctx.size
+        pad = size // 2
+        h, w = x.shape[2], x.shape[3]
+        # ties per window: input positions equal to the window's max (the
+        # -inf padding never equals one)
+        xp = F.pad(x, (pad, pad, pad, pad), value=float("-inf"))
+        cnt = None
+        for dy in range(size):
+            for dx in range(size):
+                eq = (xp[:, :, dy:dy + h, dx:dx + w] == y).float()
+                cnt = eq if cnt is None else cnt + eq
+        gn = (g.float() / cnt).to(g.dtype)
+        # dL/dx[q] = sum over the windows p that hold q of
+        # g[p] / ties[p] * [x[q] == y[p]]  (y padded with +inf, g with 0)
+        yp = F.pad(y, (pad, pad, pad, pad), value=float("inf"))
+        gp = F.pad(gn, (pad, pad, pad, pad))
+        acc = None
+        for dy in range(size):
+            for dx in range(size):
+                c = torch.where(x == yp[:, :, dy:dy + h, dx:dx + w],
+                                gp[:, :, dy:dy + h, dx:dx + w],
+                                torch.zeros((), dtype=g.dtype,
+                                            device=g.device))
+                acc = c if acc is None else acc + c
+        return acc, None
+
+
+def maxpool_same(x: torch.Tensor, size: int,
+                 exact_grad: bool = False) -> torch.Tensor:
     """Stride-1 max pooling with same padding (torch MaxPool2d(k, 1, k//2),
-    padding never wins a window)."""
-    return F.max_pool2d(x, size, stride=1, padding=size // 2)
+    padding never wins a window). Its gradient splits among tied maxima,
+    the JAX package's default; ``exact_grad`` (MODEL.EXACT_POOL_GRAD)
+    routes each window's gradient to the first maximum in row-major order,
+    torch's own backward and the JAX package's ``maxpool_same_exact``."""
+    if exact_grad or not (torch.is_grad_enabled() and x.requires_grad):
+        return F.max_pool2d(x, size, stride=1, padding=size // 2)
+    return _MaxPoolSplitTies.apply(x, size)
 
 
 def _chain(in_ch: int, spec, width: float) -> nn.Sequential:
@@ -52,10 +101,11 @@ class SPPBlock(nn.Module):
     """Spatial pyramid pooling (reference yolov4.py:50-74)."""
 
     def __init__(self, in_ch: int, width: float = 1.0,
-                 legacy_pools: bool = True):
+                 legacy_pools: bool = True, exact_pool_grad: bool = False):
         super().__init__()
         w = lambda ch: scale_channels(ch, width)
         self.legacy_pools = legacy_pools
+        self.exact_pool_grad = exact_pool_grad
         self.conv1 = nn.Sequential(
             ConvBNAct(in_ch, w(512), 1, act="leaky_relu"),
             ConvBNAct(w(512), w(1024), 3, act="leaky_relu"),
@@ -64,10 +114,11 @@ class SPPBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
-        m1 = maxpool_same(x, 5)
-        m2 = maxpool_same(x, 9)
+        exact = self.exact_pool_grad
+        m1 = maxpool_same(x, 5, exact)
+        m2 = maxpool_same(x, 9, exact)
         # reference quirk: third branch reuses pool size 5 (yolov4.py:70)
-        m3 = maxpool_same(x, 5) if self.legacy_pools else maxpool_same(x, 13)
+        m3 = maxpool_same(x, 5 if self.legacy_pools else 13, exact)
         return self.conv2(torch.cat([m3, m2, m1, x], dim=1))
 
 
@@ -117,9 +168,10 @@ class Neck(nn.Module):
     """SPP + FPN + PAN (reference yolov4.py:194-224)."""
 
     def __init__(self, c3: int, c4: int, c5: int, width: float = 1.0,
-                 legacy_pools: bool = True):
+                 legacy_pools: bool = True, exact_pool_grad: bool = False):
         super().__init__()
-        self.spp = SPPBlock(c5, width=width, legacy_pools=legacy_pools)
+        self.spp = SPPBlock(c5, width=width, legacy_pools=legacy_pools,
+                            exact_pool_grad=exact_pool_grad)
         self.fpn = FPNBlock(c3, c4, self.spp.conv2.out_ch, width=width)
         self.pan = PANBlock(width=width)
 

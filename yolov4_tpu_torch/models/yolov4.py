@@ -9,8 +9,11 @@ The model consumes NCHW float images in [0, 1] and returns:
 ``build_model(cfg, device=...)`` builds the module, draws the reference
 init from an explicit ``torch.Generator`` (on the CPU, so a seed gives the
 same weights on every device), and moves it to the device and its layers
-to ``MODEL.COMPUTE_DTYPE``. ``MODEL.PALLAS_CSP`` sends the eval forward of
-CSP stages 1-3 through K2 (see darknet.Backbone).
+to ``MODEL.COMPUTE_DTYPE``; with ``train=True`` the parameters stay in
+float32 (the JAX package's ``param_dtype``) and a bfloat16 compute dtype
+comes from ``torch.autocast`` in the train step. ``MODEL.PALLAS_CSP``
+sends the eval forward of CSP stages 1-3 through K2 (see
+darknet.Backbone).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ class YOLOv4(nn.Module):
                  anchor_mask: Sequence[Sequence[int]] = (
                      (0, 1, 2), (3, 4, 5), (6, 7, 8)),
                  legacy_spp_pools: bool = True,
+                 exact_pool_grad: bool = False,
                  width: float = 1.0, depth: float = 1.0,
                  pallas_csp: Union[bool, str] = False):
         super().__init__()
@@ -56,7 +60,8 @@ class YOLOv4(nn.Module):
                       self.backbone.stage4.transition.out_ch,
                       self.backbone.stage5.transition.out_ch)
         self.neck = Neck(c3, c4, c5, width=width,
-                         legacy_pools=legacy_spp_pools)
+                         legacy_pools=legacy_spp_pools,
+                         exact_pool_grad=exact_pool_grad)
         self.head = Head(self.neck.fpn.module3[-1].out_ch,
                          self.neck.pan.module1[-1].out_ch,
                          self.neck.pan.module2[-1].out_ch,
@@ -75,11 +80,12 @@ class YOLOv4(nn.Module):
 
 
 def build_model(cfg: Dict, device=None,
-                generator: Optional[torch.Generator] = None) -> YOLOv4:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> YOLOv4:
     """Construct the detector from a config dict (reference
     model/build.py:19), initialise it from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None) and move it to ``device``, its
-    layers in ``MODEL.COMPUTE_DTYPE``."""
+    layers in ``MODEL.COMPUTE_DTYPE``, or in float32 with ``train``."""
     model_cfg = cfg["MODEL"]
     if model_cfg["TYPE"] != "YOLOv4":
         raise ValueError(f"unsupported MODEL.TYPE {model_cfg['TYPE']!r}")
@@ -88,6 +94,7 @@ def build_model(cfg: Dict, device=None,
         anchors=model_cfg["ANCHORS"],
         anchor_mask=model_cfg["ANCHOR_MASK"],
         legacy_spp_pools=model_cfg.get("SPP_LEGACY_POOLS", True),
+        exact_pool_grad=bool(model_cfg.get("EXACT_POOL_GRAD", False)),
         width=float(model_cfg.get("WIDTH", 1.0)),
         depth=float(model_cfg.get("DEPTH", 1.0)),
         pallas_csp=model_cfg.get("PALLAS_CSP", False),
@@ -95,7 +102,8 @@ def build_model(cfg: Dict, device=None,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
-    dtype = DTYPES[model_cfg.get("COMPUTE_DTYPE", "bfloat16")]
+    dtype = (torch.float32 if train
+             else DTYPES[model_cfg.get("COMPUTE_DTYPE", "bfloat16")])
     model.to(device=device)
     for layers in (model.backbone, model.neck, model.head):
         layers.to(dtype=dtype)

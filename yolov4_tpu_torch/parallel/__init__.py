@@ -1,0 +1,7 @@
+"""The train step (one device)."""
+
+from yolov4_tpu_torch.parallel.train_step import (TrainState,
+                                                  create_train_state,
+                                                  make_train_step)
+
+__all__ = ["TrainState", "create_train_state", "make_train_step"]

@@ -35,8 +35,8 @@ GROUPS = (
     ("csp kernel", ("csp_wgmma_kernel", "csp_conv_kernel")),
     ("nms kernel", ("nms_mask_kernel", "nms_scan_kernel")),
     ("convolution", ("conv", "gemm", "sm90_xmma", "cutlass", "implicit",
-                     "winograd", "dgrad", "fprop")),
-    ("batchnorm", ("batch_norm", "bn_fw", "batchnorm")),
+                     "winograd", "dgrad", "wgrad", "fprop")),
+    ("batchnorm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
     ("top-k / sort", ("topk", "sort", "radix", "gather_topk", "bitonic")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce",
                      "cat", "copy", "index", "gather", "scatter")),

@@ -103,16 +103,19 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """Read a weights file into a state_dict of CPU tensors.
 
     ``.npz``: every array is one entry, keyed by its name. Otherwise a
-    ``torch.save`` file: a bare state_dict or the reference trainer's
-    ``{epoch, state_dict, ...}`` wrapper (utils.py:17-24), read with
-    ``weights_only=True``. A leading DDP ``module.`` prefix is stripped.
+    ``torch.save`` file: a bare state_dict, the reference trainer's
+    ``{epoch, state_dict, ...}`` wrapper (utils.py:17-24) or the port
+    trainer's ``{variables, opt_state, meta, ...}`` bundle
+    (utils/checkpoint.py), read with ``weights_only=True``. A leading DDP
+    ``module.`` prefix is stripped.
     """
     if str(path).endswith(".npz"):
         with np.load(path) as blob:
             return _strip_ddp({k: blob[k] for k in blob.files})
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(blob, Mapping) and isinstance(blob.get("state_dict"), Mapping):
-        blob = blob["state_dict"]
+    for key in ("state_dict", "variables"):
+        if isinstance(blob, Mapping) and isinstance(blob.get(key), Mapping):
+            blob = blob[key]
     if not isinstance(blob, Mapping):
         raise ValueError(f"{path}: no state_dict found")
     return _strip_ddp({k: v for k, v in blob.items()

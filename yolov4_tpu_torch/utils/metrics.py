@@ -1,5 +1,6 @@
-"""Running metrics (reference yolo/util/metric.py:11-27; the JAX package's
-utils/metrics.py AverageMeter)."""
+"""Running metrics (reference yolo/util/metric.py:11-27) and the JSONL
+scalar log: the JAX package's utils/metrics.py AverageMeter and
+MetricsJSONL."""
 
 from __future__ import annotations
 
@@ -21,3 +22,22 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / self.count
+
+
+class MetricsJSONL:
+    """Append-only JSONL scalar sink (the JAX package's utils/metrics.py):
+    one line per record, {"ts": unix_seconds, **record}, flushed at once so
+    that a crash loses nothing. The stdout log stays; this is its
+    machine-readable copy."""
+
+    def __init__(self, path: str):
+        import os
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def write(self, record: dict) -> None:
+        import json
+        import time
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"ts": round(time.time(), 3), **record},
+                               default=float) + "\n")
