@@ -60,11 +60,13 @@ line:
                width with PALLAS_CSP on, batch 16, conf 0.001, on a
                synthetic COCO val2017 of 32 images: finite AP in [0, 1],
                AP50 >= AP, K1 once and K2 three times per batch.
-  9. train   — the train step at WIDTH 0.25, 128x128, batch 4, float32
-               (TF32 off), SGD, ACCUMULATION_STEPS 2: two micro-steps on
-               the card against the same two on the CPU from one seed
-               (loss, the parameters' change as a whole and per tensor,
-               and BN buffers within TRAIN_TOL_*).
+  9. train   — the train step at WIDTH 0.25, 128x128, batch 4, SGD,
+               ACCUMULATION_STEPS 2: two micro-steps on the card against
+               the same two on the CPU from one init seed, in float32 (TF32
+               off; loss, the parameters' change as a whole and per tensor,
+               and BN buffers within TRAIN_TOL_*), then in float64 at init
+               seeds 1 and 5 (TRAIN_F64_TOL_*: each tensor's change within
+               1e-9 of its largest, BN buffers within 1e-10).
  10. train   — full width, 608x608, batch 8, bfloat16 autocast over
      full      float32 weights, Adam: 3 warm steps, then 20 timed with
                CUDA events (ms per step, img/s, peak memory, the share of
@@ -72,11 +74,22 @@ line:
                3x the forward's conv FLOPs); a fresh model's 30 steps on
                one batch without warmup (finite, falling loss); then
                ``Trainer.fit`` on a synthetic COCO (64 train2017 JPEGs,
-               mosaic, 4 loader workers; 16 val2017 images, PALLAS_CSP on;
-               ACCUMULATION_STEPS 2; 2 epochs) with K1 and K2 counted in
-               its validations, and a resume from its checkpoint for a
-               third epoch (epoch, step and best AP carried over); the
-               Trainer's own img/s, loader included, beside the step's.
+               mosaic; 16 val2017 images, PALLAS_CSP on;
+               ACCUMULATION_STEPS 2; 2 epochs) three ways: host
+               augmentation with 4 loader workers (then a resume from its
+               checkpoint for a third epoch: epoch, step and best AP
+               carried over), host augmentation with 8 workers, and
+               AUGMENTATION.DEVICE (then a resume from its first epoch's
+               checkpoint, whose first losses must equal the uninterrupted
+               run's, RESUME_TOL); K1 and K2 counted in each run's
+               validations; each run's img/s per epoch, loader included.
+ 11. aug     — AUGMENTATION.DEVICE's augmentation (data/device_aug.py):
+               parameters drawn on the CPU and applied on the card and on
+               the CPU at 608/b2 (AUG_TOL_*); two calls with one (seed,
+               step) equal and free of host synchronisation;
+               augment_batch timed at 608/b8 (per call and device time),
+               and the full-width train step with it inside beside the
+               step on the same batch already augmented.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -136,12 +149,29 @@ TRAIN_TOL_LOSS = 1e-4
 TRAIN_TOL_UPDATE_L2 = 1e-2
 TRAIN_TOL_UPDATE_TENSOR = 5e-2
 TRAIN_TOL_BUF = (1e-3, 1e-5)
+# ... and the same two micro-steps in float64 at init seeds 1 and 5, where
+# conditioning cannot hide a device fault: the losses, relative; each
+# parameter's change against its tensor's largest change; each BN buffer
+# against its largest magnitude.
+TRAIN_F64_SEEDS = (1, 5)
+TRAIN_F64_TOL_LOSS = 1e-12
+TRAIN_F64_TOL_UPDATE_TENSOR = 1e-9
+TRAIN_F64_TOL_BUF = 1e-10
 # The fused bfloat16 forward against the default one, decoded: both round to
 # bfloat16 at different points (the default path rounds conv outputs, BN and
 # each Mish step; K2 keeps them in float32), so each is held against a
 # float32 forward of the same weights: the fused path's mean |error| on the
 # scores and on the boxes may exceed the default path's by this factor.
 FUSED_TOL_VS_F32 = 1.25
+# The device augmentation on the card against the CPU with the same
+# parameters: pixels on the [0, 1] scale and boxes in pixels. Both run the
+# same float32 operations; the resample's products sum in another order.
+AUG_TOL_IMG = 1e-3
+AUG_TOL_BOX_PX = 1e-3
+# A device-aug Trainer resumed from a checkpoint against the uninterrupted
+# run: the relative gap of the first two losses after the resume (same
+# weights, same augmented batches).
+RESUME_TOL = 1e-6
 STAGE_SHAPES = ((16, 304, 304, 64, 0), (16, 152, 152, 128, 2),
                 (16, 76, 76, 256, 8))
 RAGGED_SHAPES = ((2, 9, 13, 16, 0), (3, 11, 7, 24, 3), (2, 5, 7, 18, 1))
@@ -962,72 +992,127 @@ def small_train_batches(device):
     return out
 
 
-def phase_train_vs_cpu(cfg_cls, build_model, train, report):
-    """The train step at WIDTH 0.25 in float32 (TF32 off) on the card and on
-    the CPU: SGD, ACCUMULATION_STEPS 2, two micro-steps from one seed."""
-    cfg = cfg_cls.from_dict({
-        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
-        "OPTIMIZER": {"TYPE": "SGD", "LR": 0.01},
-        "TRAIN": {"ACCUMULATION_STEPS": 2}})
-    runs = {}
-    with tf32_off():
-        for device in ("cpu", "cuda"):
-            model = build_model(cfg, device=device, train=True,
-                                generator=torch.Generator().manual_seed(
-                                    TRAIN_SEED))
-            init = {k: v.detach().cpu().clone()
-                    for k, v in model.state_dict().items()}
-            opt = train.build_optimizer(cfg, model)
-            step = train.make_train_step(
-                model, train.build_criterion(cfg), opt,
-                train.build_lr_schedule(cfg, len_epoch=4),
-                accumulation_steps=2)
-            state = train.create_train_state(model)
-            losses = []
-            for imgs, labels in small_train_batches(device):
-                state = step(state, imgs, labels)
-                losses.append(float(state.loss))
-            runs[device] = (losses, init, {k: v.detach().cpu() for k, v in
-                                           model.state_dict().items()})
-            del model, opt, step
-    (cpu_loss, init, cpu_sd), (gpu_loss, _, gpu_sd) = runs["cpu"], runs["cuda"]
-    params = dict(build_model(cfg, device="cpu").named_parameters())
-    diff2 = ref2 = worst_tensor = worst_buf = 0.0
-    worst_name, bad = "", []
+def train_two_steps(cfg, build_model, train, device, seed, dtype):
+    """Two SGD micro-steps (ACCUMULATION_STEPS 2) of the WIDTH 0.25 model
+    from init ``seed`` on ``device`` in ``dtype``: (losses, initial
+    state_dict, final state_dict), on the CPU."""
+    model = build_model(cfg, device=device, train=True,
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to(dtype)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    step = train.make_train_step(
+        model, train.build_criterion(cfg), train.build_optimizer(cfg, model),
+        train.build_lr_schedule(cfg, len_epoch=4), accumulation_steps=2)
+    state = train.create_train_state(model)
+    losses = []
+    for imgs, labels in small_train_batches(device):
+        state = step(state, imgs.to(dtype), labels)
+        losses.append(float(state.loss))
+    return losses, init, {k: v.detach().cpu() for k, v in
+                          model.state_dict().items()}
+
+
+def compare_train_runs(cpu, gpu, param_names):
+    """The card's run against the CPU's: the losses' largest relative gap;
+    the parameters' change as the L2 norm of the difference over the L2
+    norm of the CPU's change, and the worst tensor's largest difference
+    over its largest change; for each BN buffer its largest difference,
+    absolute and over the buffer's largest magnitude; other buffers must
+    be equal."""
+    (cpu_loss, init, cpu_sd), (gpu_loss, _, gpu_sd) = cpu, gpu
+    diff2 = ref2 = 0.0
+    res = dict(card_loss=gpu_loss, cpu_loss=cpu_loss, worst_tensor_rel=0.0,
+               worst_tensor="", worst_buffer_abs=0.0, worst_buffer_rel=0.0,
+               unequal=[])
     for key, want in cpu_sd.items():
         got = gpu_sd[key]
-        if key in params:
+        if key in param_names:
             upd_want = (want - init[key]).double()
             upd_diff = (got - init[key]).double() - upd_want
             diff2 += float(upd_diff.square().sum())
             ref2 += float(upd_want.square().sum())
             rel = float(upd_diff.abs().max() / upd_want.abs().max())
-            if rel > worst_tensor:
-                worst_tensor, worst_name = rel, key
+            if rel > res["worst_tensor_rel"]:
+                res["worst_tensor_rel"], res["worst_tensor"] = rel, key
         elif key.endswith(("running_mean", "running_var")):
-            rtol, atol = TRAIN_TOL_BUF
-            worst_buf = max(worst_buf, float((got - want).abs().max()))
-            if not torch.allclose(got, want, rtol=rtol, atol=atol):
-                bad.append(key)
+            d = float((got - want).abs().max())
+            res["worst_buffer_abs"] = max(res["worst_buffer_abs"], d)
+            res["worst_buffer_rel"] = max(res["worst_buffer_rel"],
+                                          d / float(want.abs().max()))
         elif not torch.equal(got, want):
+            res["unequal"].append(key)
+    res["update_l2_rel"] = (diff2 / ref2) ** 0.5
+    res["loss_rel"] = float(np.max(np.abs(np.subtract(gpu_loss, cpu_loss))
+                                   / np.abs(cpu_loss)))
+    return res
+
+
+def phase_train_vs_cpu(cfg_cls, build_model, train, report):
+    """The train step at WIDTH 0.25 on the card (TF32 off) against the
+    CPU, SGD, ACCUMULATION_STEPS 2, two micro-steps from one init seed: in
+    float32 at TRAIN_SEED (TRAIN_TOL_*), then in float64 at init seeds 1
+    and 5 (TRAIN_F64_TOL_*)."""
+    cfg = cfg_cls.from_dict({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "OPTIMIZER": {"TYPE": "SGD", "LR": 0.01},
+        "TRAIN": {"ACCUMULATION_STEPS": 2}})
+    params = dict(build_model(cfg, device="cpu").named_parameters())
+    with tf32_off():
+        runs = {dev: train_two_steps(cfg, build_model, train, dev, TRAIN_SEED,
+                                     torch.float32)
+                for dev in ("cpu", "cuda")}
+    res = compare_train_runs(runs["cpu"], runs["cuda"], params)
+    rtol, atol = TRAIN_TOL_BUF
+    bad = list(res["unequal"])
+    for key, want in runs["cpu"][2].items():
+        if (key.endswith(("running_mean", "running_var"))
+                and not torch.allclose(runs["cuda"][2][key], want,
+                                       rtol=rtol, atol=atol)):
             bad.append(key)
-    update_l2 = (diff2 / ref2) ** 0.5
-    loss_rel = float(np.max(np.abs(np.subtract(gpu_loss, cpu_loss))
-                            / np.abs(cpu_loss)))
     log(f"[train] WIDTH 0.25 f32 at 128, batch 4, SGD, 2 micro-steps, init "
-        f"seed {TRAIN_SEED}: card vs CPU loss {gpu_loss} vs {cpu_loss} "
-        f"({loss_rel:.3g} apart, tol {TRAIN_TOL_LOSS}); parameter change "
-        f"{update_l2:.3g} apart in L2 (tol {TRAIN_TOL_UPDATE_L2}), worst "
-        f"tensor {worst_name} {worst_tensor:.3g} of its largest change (tol "
-        f"{TRAIN_TOL_UPDATE_TENSOR}); worst BN buffer |diff| {worst_buf:.3g}")
-    if (loss_rel > TRAIN_TOL_LOSS or not update_l2 <= TRAIN_TOL_UPDATE_L2
-            or worst_tensor > TRAIN_TOL_UPDATE_TENSOR or bad):
+        f"seed {TRAIN_SEED}: card vs CPU loss {res['card_loss']} vs "
+        f"{res['cpu_loss']} ({res['loss_rel']:.3g} apart, tol "
+        f"{TRAIN_TOL_LOSS}); parameter change {res['update_l2_rel']:.3g} "
+        f"apart in L2 (tol {TRAIN_TOL_UPDATE_L2}), worst tensor "
+        f"{res['worst_tensor']} {res['worst_tensor_rel']:.3g} of its largest "
+        f"change (tol {TRAIN_TOL_UPDATE_TENSOR}); worst BN buffer |diff| "
+        f"{res['worst_buffer_abs']:.3g}")
+    if (res["loss_rel"] > TRAIN_TOL_LOSS
+            or not res["update_l2_rel"] <= TRAIN_TOL_UPDATE_L2
+            or res["worst_tensor_rel"] > TRAIN_TOL_UPDATE_TENSOR or bad):
         raise AssertionError(f"train step on the card against the CPU out "
                              f"of tolerance (buffers off: {bad})")
-    report["train_vs_cpu"] = dict(card_loss=gpu_loss, cpu_loss=cpu_loss,
-                                  update_l2_rel=update_l2,
-                                  worst_tensor_rel=worst_tensor,
-                                  worst_buffer_abs=worst_buf)
+    report["train_vs_cpu"] = {k: res[k] for k in (
+        "card_loss", "cpu_loss", "update_l2_rel", "worst_tensor_rel",
+        "worst_buffer_abs")}
+
+    f64 = {}
+    for seed in TRAIN_F64_SEEDS:
+        runs = {dev: train_two_steps(cfg, build_model, train, dev, seed,
+                                     torch.float64)
+                for dev in ("cpu", "cuda")}
+        res = compare_train_runs(runs["cpu"], runs["cuda"], params)
+        log(f"[train] WIDTH 0.25 f64 at 128, init seed {seed}: card vs CPU "
+            f"loss {res['card_loss']} vs {res['cpu_loss']} "
+            f"({res['loss_rel']:.3g} apart, tol {TRAIN_F64_TOL_LOSS}); "
+            f"parameter change {res['update_l2_rel']:.3g} apart in L2, "
+            f"worst tensor {res['worst_tensor']} {res['worst_tensor_rel']:.3g}"
+            f" of its largest change (tol {TRAIN_F64_TOL_UPDATE_TENSOR}); "
+            f"worst BN buffer |diff| {res['worst_buffer_abs']:.3g}, "
+            f"{res['worst_buffer_rel']:.3g} of its largest magnitude (tol "
+            f"{TRAIN_F64_TOL_BUF})")
+        if (res["loss_rel"] > TRAIN_F64_TOL_LOSS
+                or res["worst_tensor_rel"] > TRAIN_F64_TOL_UPDATE_TENSOR
+                or res["worst_buffer_rel"] > TRAIN_F64_TOL_BUF
+                or res["unequal"]):
+            raise AssertionError(f"float64 train step on the card against "
+                                 f"the CPU out of tolerance at init seed "
+                                 f"{seed}: {res}")
+        f64[seed] = {k: res[k] for k in (
+            "card_loss", "cpu_loss", "loss_rel", "update_l2_rel",
+            "worst_tensor", "worst_tensor_rel", "worst_buffer_abs",
+            "worst_buffer_rel")}
+    report["train_vs_cpu_f64"] = f64
 
 
 def phase_train_full(cfg_cls, build_model, train, report):
@@ -1097,83 +1182,324 @@ def phase_train_full(cfg_cls, build_model, train, report):
         train_tflop=flops / 1e12, flop_share_bf16=share, losses=losses)
 
 
+def fit_trainer(Trainer, raw, work, kernels, resume=None, hook=None):
+    """``Trainer.fit`` from the config dict ``raw`` on the synthetic COCO
+    in ``work``, with K1's and K2's counts set to 0 just before and read
+    just after; ``hook(trainer)`` runs before fit. Returns (trainer, K1
+    launches, K2 launches, the run's metrics records)."""
+    from yolov4_tpu_torch.config import Config
+    nms_cuda, csp_cuda = kernels
+    trainer = Trainer(Config.from_dict(raw), str(work), resume=resume,
+                      device="cuda", print_freq=4)
+    if hook is not None:
+        hook(trainer)
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    trainer.fit()
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    with open(Path(raw["TRAIN"]["OUTPUT_DIR"]) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    return trainer, k1, k2, rows
+
+
+def record_losses(trainer, losses):
+    """Append each micro-step's loss (a device scalar: no host sync) to
+    ``losses``."""
+    step = trainer.train_step
+
+    def recording(state, images, labels):
+        state = step(state, images, labels)
+        losses.append(state.loss)
+        return state
+
+    trainer.train_step = recording
+
+
 def phase_trainer(Trainer, nms_cuda, csp_cuda, coco_ids, report):
-    """``Trainer.fit`` at full width on a synthetic COCO, then a resume from
-    its checkpoint; returns (K1, K2) launches in their validations."""
+    """``Trainer.fit`` at full width on one synthetic COCO three ways: host
+    augmentation with 4 and with 8 loader workers, and
+    AUGMENTATION.DEVICE; resumes from a checkpoint in the first and the
+    last. Returns {run: (K1, K2) launches}, each run's counts set to 0
+    just before it and read just after."""
     work = ROOT / "runs" / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
     n_train, n_val, batch, epochs = 64, 16, 8, 2
     steps, n_val_batches = n_train // batch, n_val // batch
     write_val2017(work, coco_ids, n_train, name="train2017", seed=8)
     write_val2017(work, coco_ids, n_val, name="val2017", seed=9)
-    from yolov4_tpu_torch.config import Config
-    raw = {"DATA": {"BATCH_SIZE": batch, "WORKERS": 4},
-           "MODEL": {"PALLAS_CSP": True},
-           "AUGMENTATION": {"IS_MOSAIC": True},
-           "TEST": {"BATCH_SIZE": batch},
-           "TRAIN": {"ACCUMULATION_STEPS": 2, "MAX_EPOCHS": epochs,
-                     "OUTPUT_DIR": str(work / "out")}}
-    nms_cuda.greedy_nms_mask_cuda.launches = 0
-    csp_cuda.fused_csp_stage_cuda.launches = 0
+    kernels = (nms_cuda, csp_cuda)
+
+    def config(name, workers, device_aug, max_epochs=epochs):
+        return {"DATA": {"BATCH_SIZE": batch, "WORKERS": workers},
+                "MODEL": {"PALLAS_CSP": True},
+                "AUGMENTATION": {"IS_MOSAIC": True, "DEVICE": device_aug},
+                "TEST": {"BATCH_SIZE": batch},
+                "TRAIN": {"ACCUMULATION_STEPS": 2, "MAX_EPOCHS": max_epochs,
+                          "OUTPUT_DIR": str(work / name)}}
+
+    def check(name, trainer, k1, k2, rows, n_epochs, first_step=0):
+        losses = [r["loss"] for r in rows if r["kind"] == "train"]
+        epoch_rows = [r for r in rows if r["kind"] == "train_epoch"]
+        if (k1 != n_epochs * n_val_batches
+                or k2 != 3 * n_epochs * n_val_batches):
+            raise AssertionError(f"Trainer ({name}): K1 launched {k1}, K2 "
+                                 f"{k2} times in {n_epochs} validations of "
+                                 f"{n_val_batches} batches")
+        if trainer.state.step != first_step + n_epochs * steps:
+            raise AssertionError(f"Trainer ({name}) took "
+                                 f"{trainer.state.step - first_step} steps")
+        if not np.isfinite(losses).all() or len(epoch_rows) != n_epochs:
+            raise AssertionError(f"Trainer ({name}) records: {rows}")
+        return [r["img_s"] for r in epoch_rows]
+
+    runs, img_s, launches = {}, {}, {}
+    # host augmentation, 4 workers, then a resume for a third epoch
     t0 = time.time()
-    trainer = Trainer(Config.from_dict(raw), str(work), device="cuda",
-                      print_freq=4)
-    trainer.fit()
+    raw = config("host4", 4, False)
+    trainer, k1, k2, rows = fit_trainer(Trainer, raw, work, kernels)
     fit_s = time.time() - t0
-    k1 = nms_cuda.greedy_nms_mask_cuda.launches
-    k2 = csp_cuda.fused_csp_stage_cuda.launches
-    if k1 != epochs * n_val_batches or k2 != 3 * epochs * n_val_batches:
-        raise AssertionError(f"Trainer: K1 launched {k1}, K2 {k2} times in "
-                             f"{epochs} validations of {n_val_batches} "
-                             f"batches")
-    if trainer.state.step != epochs * steps:
-        raise AssertionError(f"Trainer took {trainer.state.step} steps")
-    with open(work / "out" / "metrics.jsonl") as f:
-        rows = [json.loads(line) for line in f]
-    epoch_rows = [r for r in rows if r["kind"] == "train_epoch"]
-    losses = [r["loss"] for r in rows if r["kind"] == "train"]
-    if not np.isfinite(losses).all() or len(epoch_rows) != epochs:
-        raise AssertionError(f"Trainer records: {rows}")
+    img_s["host4"] = check("host, 4 workers", trainer, k1, k2, rows, epochs)
+    launches["host4"] = (k1, k2)
     best_ap50 = trainer.best_ap50
-    ckpt = work / "out" / "checkpoint.pth"
     del trainer
     torch.cuda.empty_cache()
+    raw = config("host4", 4, False, epochs + 1)
+    carried = []
 
-    raw["TRAIN"]["MAX_EPOCHS"] = epochs + 1
-    resumed = Trainer(Config.from_dict(raw), str(work), resume=str(ckpt),
-                      device="cuda", print_freq=4)
-    carried = (resumed.start_epoch, resumed.state.step, resumed.best_ap50)
-    if carried != (epochs, epochs * steps, best_ap50):
+    def carry(t):
+        carried.extend((t.start_epoch, t.state.step, t.best_ap50))
+
+    resumed, k1, k2, rows = fit_trainer(
+        Trainer, raw, work, kernels,
+        resume=str(work / "host4" / "checkpoint.pth"), hook=carry)
+    if tuple(carried) != (epochs, epochs * steps, best_ap50):
         raise AssertionError(f"resume carried (epoch, step, best AP50) "
                              f"{carried}, expected "
                              f"{(epochs, epochs * steps, best_ap50)}")
-    resumed.fit()
-    k1 = nms_cuda.greedy_nms_mask_cuda.launches
-    k2 = csp_cuda.fused_csp_stage_cuda.launches
-    if (resumed.state.step != (epochs + 1) * steps
-            or k1 != (epochs + 1) * n_val_batches or k2 != 3 * k1):
-        raise AssertionError(f"resumed run: step {resumed.state.step}, K1 "
-                             f"{k1}, K2 {k2}")
-    with open(work / "out" / "metrics.jsonl") as f:
-        rows = [json.loads(line) for line in f]
-    epoch_rows = [r for r in rows if r["kind"] == "train_epoch"]
-    evals = [r for r in rows if r["kind"] == "eval"]
+    img_s["host4"] += check("host, 4 workers, resumed", resumed, k1, k2,
+                            rows[-4:], 1, first_step=epochs * steps)
+    launches["host4_resumed"] = (k1, k2)
+    evals = [r["ap50"] for r in rows if r["kind"] == "eval"]
     del resumed
     torch.cuda.empty_cache()
-    img_s = [r["img_s"] for r in epoch_rows]
-    log(f"[trainer] full width, 608, batch {batch}, mosaic, 4 workers, "
-        f"ACCUMULATION_STEPS 2, PALLAS_CSP val: 2 epochs in {fit_s:.1f}s, "
-        f"then resumed at epoch {carried[0] + 1} step {carried[1]} best AP50 "
-        f"{carried[2]} for a third; K1 {k1}, K2 {k2} launches in 3 "
-        f"validations; Trainer img/s per epoch (loader included) "
-        f"{[round(v, 2) for v in img_s]}; AP50 per epoch "
-        f"{[r['ap50'] for r in evals]}")
-    report["trainer"] = dict(fit_seconds=fit_s, epochs=epochs + 1,
-                             k1_launches=k1, k2_launches=k2,
-                             epoch_img_s=img_s, resumed_from=carried,
-                             ap50=[r["ap50"] for r in evals])
+
+    # host augmentation, 8 workers
+    trainer, k1, k2, rows = fit_trainer(Trainer, config("host8", 8, False),
+                                        work, kernels)
+    img_s["host8"] = check("host, 8 workers", trainer, k1, k2, rows, epochs)
+    launches["host8"] = (k1, k2)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # AUGMENTATION.DEVICE: 2 epochs keeping the checkpoint of the first,
+    # then a resume from it, whose first steps must see the same
+    # augmented batches and so give the same losses
+    out = work / "device"
+    first_ckpt = out / "epoch1.pth"
+    losses = []
+
+    def keep_first(t):
+        record_losses(t, losses)
+        save = t.save
+
+        def saving(epoch, ap50, ap):
+            save(epoch, ap50, ap)
+            if epoch == 0:
+                shutil.copyfile(out / "checkpoint.pth", first_ckpt)
+
+        t.save = saving
+
+    t0 = time.time()
+    trainer, k1, k2, rows = fit_trainer(Trainer, config("device", 4, True),
+                                        work, kernels, hook=keep_first)
+    device_fit_s = time.time() - t0
+    img_s["device"] = check("AUGMENTATION.DEVICE", trainer, k1, k2, rows,
+                            epochs)
+    launches["device"] = (k1, k2)
+    del trainer
+    torch.cuda.empty_cache()
+    again = []
+    resumed, k1, k2, rows = fit_trainer(
+        Trainer, config("device", 4, True), work, kernels,
+        resume=str(first_ckpt), hook=lambda t: record_losses(t, again))
+    check("AUGMENTATION.DEVICE, resumed", resumed, k1, k2, rows[-4:], 1,
+          first_step=steps)
+    launches["device_resumed"] = (k1, k2)
+    del resumed
+    torch.cuda.empty_cache()
+    losses = [float(v) for v in losses]
+    again = [float(v) for v in again]
+    # the first two steps after the resume run at the checkpoint's weights
+    # (ACCUMULATION_STEPS 2): the same batches give the same losses
+    resume_rel = max(abs(a - b) / abs(b)
+                     for a, b in zip(again[:2], losses[steps:steps + 2]))
+    epoch_rel = max(abs(a - b) / abs(b)
+                    for a, b in zip(again, losses[steps:]))
+    if not np.isfinite(losses).all() or resume_rel > RESUME_TOL:
+        raise AssertionError(f"device-aug resume: losses {again[:2]} after "
+                             f"the resume, {losses[steps:steps + 2]} in the "
+                             f"uninterrupted run")
+    log(f"[trainer] full width, 608, batch {batch}, mosaic, ACCUMULATION_"
+        f"STEPS 2, PALLAS_CSP val, 2 epochs each: host augmentation 4 "
+        f"workers in {fit_s:.1f}s, then resumed at epoch {carried[0] + 1} "
+        f"step {carried[1]} best AP50 {carried[2]} for a third; host 8 "
+        f"workers; AUGMENTATION.DEVICE (4 workers) in {device_fit_s:.1f}s, "
+        f"then resumed from its epoch-1 checkpoint: the first two losses "
+        f"{again[:2]} against {losses[steps:steps + 2]} uninterrupted "
+        f"({resume_rel:.3g} apart, tol {RESUME_TOL}; {epoch_rel:.3g} over "
+        f"the epoch). K1, K2 launches per run {launches}; AP50 per epoch "
+        f"(host 4) {evals}")
+    log(f"[trainer] Trainer img/s per epoch (loader included): host 4 "
+        f"workers {[round(v, 2) for v in img_s['host4']]}, host 8 workers "
+        f"{[round(v, 2) for v in img_s['host8']]}, AUGMENTATION.DEVICE "
+        f"{[round(v, 2) for v in img_s['device']]}")
+    report["trainer"] = dict(fit_seconds=fit_s, device_fit_seconds=device_fit_s,
+                             epoch_img_s=img_s, launches=launches,
+                             resumed_from=carried, ap50=evals,
+                             device_losses=losses, device_resumed_losses=again,
+                             device_resume_rel=resume_rel)
     shutil.rmtree(work, ignore_errors=True)
-    return k1, k2
+    return launches
+
+
+def aug_case(seed, b, size, k=60):
+    """Member canvases [B, 4, S, S, 3] uint8 (noise under filled
+    rectangles) and member boxes [B, 4, K, 5] (1-20 per member, in canvas
+    pixels), on the CPU."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    canvases = rng.integers(0, 256, (b, 4, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((b, 4, k, 5), np.float32)
+    for i in range(b):
+        for m in range(4):
+            n = int(rng.integers(1, 21))
+            xy = rng.uniform(0, size * 0.9, (n, 2))
+            wh = rng.uniform(4, size * 0.5, (n, 2))
+            boxes[i, m, :n, :2] = xy
+            boxes[i, m, :n, 2:4] = np.minimum(xy + wh, size)
+            boxes[i, m, :n, 4] = rng.integers(0, 80, n)
+            for x1, y1, x2, y2 in boxes[i, m, :n, :4].astype(int)[:4]:
+                cv2.rectangle(canvases[i, m], (int(x1), int(y1)),
+                              (int(x2), int(y2)),
+                              tuple(int(v) for v in rng.integers(0, 256, 3)),
+                              -1)
+    return torch.from_numpy(canvases), torch.from_numpy(boxes)
+
+
+def phase_device_aug(cfg_cls, build_model, train, report):
+    """AUGMENTATION.DEVICE's augmentation (data/device_aug.py) on the card:
+    the same parameters, drawn on the CPU, applied on the card and on the
+    CPU at 608/b2 (AUG_TOL_*); two calls with one (seed, step) equal, and
+    no host synchronisation in a call; augment_batch timed at 608/b8, and
+    the full-width train step with it inside beside the step on the same
+    batch already augmented."""
+    from yolov4_tpu_torch.data import device_aug as da
+    from yolov4_tpu_torch.parallel.train_step import aug_generator
+    cfg = cfg_cls.from_dict({
+        "DATA": {"BATCH_SIZE": 8}, "MODEL": {"COMPUTE_DTYPE": "bfloat16"},
+        "OPTIMIZER": {"TYPE": "ADAM"}, "LR_SCHEDULER": {"IS_WARMUP": False},
+        "AUGMENTATION": {"DEVICE": True}})
+    kw = da.device_aug_config(cfg)
+    size, k = 608, cfg["DATA"]["MAX_NUM_LABELS"]
+    cases = []
+    for seed in range(3):
+        canvases, boxes = aug_case(seed, 2, size, k)
+        params = da.sample_params(torch.Generator().manual_seed(seed), 2,
+                                  size, **kw)
+        want_img, want_lab = da.apply_params(canvases, boxes, params, k)
+        got_img, got_lab = da.apply_params(
+            canvases.cuda(), boxes.cuda(),
+            {n: v.cuda() for n, v in params.items()}, k)
+        got_img, got_lab = got_img.cpu(), got_lab.cpu()
+        img_err = float((got_img - want_img).abs().max())
+        box_err = float((got_lab - want_lab).abs().max())
+        same_rows = torch.equal(got_lab.sum(-1) > 0, want_lab.sum(-1) > 0)
+        cases.append(dict(seed=seed, img_max_abs=img_err,
+                          box_max_abs_px=box_err, rows_equal=same_rows,
+                          labels=int((want_lab.sum(-1) > 0).sum()),
+                          flips=int(params["flip"].sum()),
+                          zoom_out_members=int((params["crop"] < 0).any(-1)
+                                               .sum())))
+        if (img_err > AUG_TOL_IMG or box_err > AUG_TOL_BOX_PX
+                or not same_rows or got_img.shape != (2, size, size, 3)):
+            raise AssertionError(f"device aug on the card against the CPU: "
+                                 f"{cases[-1]}")
+    log(f"[aug] 608/b2, parameters drawn on the CPU, applied on the card "
+        f"and on the CPU: {cases} (tol {AUG_TOL_IMG} on [0, 1], "
+        f"{AUG_TOL_BOX_PX} px, label rows equal)")
+
+    b = 8
+    canvases, boxes = aug_case(7, b, size, k)
+    canvases, boxes = canvases.cuda(), boxes.cuda()
+
+    def call(step):
+        return da.augment_batch(aug_generator(canvases.device, 0, step),
+                                canvases, boxes, size, k, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = call(5)
+        second = call(5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    other = call(6)
+    if not (torch.equal(first[0], second[0])
+            and torch.equal(first[1], second[1])):
+        raise AssertionError("device aug: one (seed, step) gave two outputs")
+    if torch.equal(first[0], other[0]):
+        raise AssertionError("device aug: steps 5 and 6 gave one output")
+    ms = cuda_ms(lambda: call(5))
+    device_ms = cuda_ms(lambda: call(5), queue_ahead=True)
+    # the dense resample's products: 2 x (N x S x S x 3S) multiply-adds
+    gflop = 2 * 2 * (b * 4) * size * size * 3 * size / 1e9
+    log(f"[aug] augment_batch 608/b{b}: {ms:.3f} ms per call with the "
+        f"host's enqueue, device {device_ms:.3f} ms; equal for one (seed, "
+        f"step), no host synchronisation; resample products {gflop:.1f} "
+        f"GFLOP float32")
+
+    model = build_model(cfg, device="cuda", train=True,
+                        generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    opt = train.build_optimizer(cfg, model)
+    common = dict(accumulation_steps=1, compute_dtype=torch.bfloat16)
+    crit = train.build_criterion(cfg)
+    sched = train.build_lr_schedule(cfg, len_epoch=100)
+    step_aug = train.make_train_step(model, crit, opt, sched,
+                                     device_aug=kw, **common)
+    step_plain = train.make_train_step(model, crit, opt, sched, **common)
+    state = train.create_train_state(model)
+    images, labels = call(5)
+
+    def timed(fn, *args, n=10):
+        nonlocal state
+        for _ in range(2):
+            state = fn(state, *args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            state = fn(state, *args)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    aug_step_ms = timed(step_aug, canvases, boxes)
+    plain_step_ms = timed(step_plain, images, labels)
+    if not bool(torch.isfinite(state.loss)):
+        raise AssertionError(f"train step with device aug: loss {state.loss}")
+    log(f"[aug] full-width train step 608/b{b}, bf16 autocast, Adam: "
+        f"{aug_step_ms:.3f} ms with augment_batch inside "
+        f"({b * 1e3 / aug_step_ms:.1f} img/s), {plain_step_ms:.3f} ms on the "
+        f"same batch already augmented")
+    del model, opt, step_aug, step_plain, state
+    torch.cuda.empty_cache()
+    report["device_aug"] = dict(cases=cases, batch=b, img_size=size,
+                                augment_ms=ms, augment_device_ms=device_ms,
+                                resample_gflop=gflop, step_ms=aug_step_ms,
+                                step_plain_ms=plain_step_ms)
 
 
 def main() -> int:
@@ -1228,8 +1554,14 @@ def main() -> int:
         create_train_state=create_train_state, images_to_input=images_to_input)
     phase_train_vs_cpu(Config, build_model, train, report)
     phase_train_full(Config, build_model, train, report)
-    trainer_k1, trainer_k2 = phase_trainer(Trainer, nms_cuda, csp_cuda,
-                                           COCO_CLASS_IDS, report)
+    trainer_launches = phase_trainer(Trainer, nms_cuda, csp_cuda,
+                                     COCO_CLASS_IDS, report)
+    trainer_k1 = sum(k1 for k1, _ in trainer_launches.values())
+    trainer_k2 = sum(k2 for _, k2 in trainer_launches.values())
+    device_k1, device_k2 = (sum(trainer_launches[run][i]
+                                for run in ("device", "device_resumed"))
+                            for i in (0, 1))
+    phase_device_aug(Config, build_model, train, report)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1240,9 +1572,12 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/nms.cu",
         "replaces": "yolov4_tpu/ops/nms_pallas.py:140",
-        # the detection path's batches and the Trainer's validations
+        # the detection path's batches and the Trainer's validations (the
+        # three Trainer runs and their resumes; of them, the runs with
+        # AUGMENTATION.DEVICE)
         "launches": launches + trainer_k1,
         "launches_in_trainer": trainer_k1,
+        "launches_in_device_aug_trainer": device_k1,
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1266,6 +1601,7 @@ def main() -> int:
         # val's batches and the Trainer's validations
         "launches": k2_launches + trainer_k2,
         "launches_in_trainer": trainer_k2,
+        "launches_in_device_aug_trainer": device_k2,
         "max_abs_err": max(r["max_abs_err"] for r in stages),
         "ms": sum(r["ms"] for r in stages),
         "device_ms": sum(r["device_ms"] for r in stages),

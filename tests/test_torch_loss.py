@@ -34,6 +34,34 @@ def test_loss_golden():
     np.testing.assert_allclose(float(loss), float(golden["loss"]), rtol=2e-4)
 
 
+def test_loss_dtype_follows_wider_inputs():
+    """float32 and bfloat16 outputs give a float32 loss (bfloat16 taken as
+    its float32 values, bit for bit); float64 outputs a float64 loss."""
+    golden = np.load(GOLDEN)
+    labels = torch.from_numpy(golden["labels"])
+
+    def loss_of(dtype, via=None):
+        outputs = []
+        for i in range(3):
+            out, pred = (torch.from_numpy(golden[f"{k}{i}"]).to(dtype)
+                         for k in ("out", "pred"))
+            if via is not None:
+                out, pred = out.to(via), pred.to(via)
+            outputs.append({"layer_no": i, "output": out, "pred": pred})
+        return YOLOLoss(MODEL_CFG, ignore_thresh=0.7)(
+            outputs, {"padded_labels": labels})
+
+    f32, f64 = loss_of(torch.float32), loss_of(torch.float64)
+    bf16 = loss_of(torch.bfloat16)
+    assert (f32.dtype, bf16.dtype, f64.dtype) == (torch.float32,
+                                                  torch.float32,
+                                                  torch.float64)
+    assert torch.equal(bf16, loss_of(torch.bfloat16, via=torch.float32))
+    np.testing.assert_allclose(float(f64), float(golden["loss"]), rtol=2e-4)
+    assert abs(float(f64) - float(f32)) < 1e-5 * float(f64)
+    assert float(f64) != float(f32)
+
+
 def _labels(b=2, img=64):
     """Labels whose assignments never share an (anchor, cell): the JAX
     package keeps an unspecified one of colliding box writes. Checked

@@ -1,5 +1,7 @@
 """The port's YOLOv4 (WIDTH = DEPTH = 0.25, float32, 64x64) against the JAX
-package's, on the same weights and inputs, plus the decode goldens."""
+package's, on the same weights and inputs, plus the decode goldens; and
+the bfloat16 eval model, whose BatchNorm stays float32 as the JAX
+package's ``param_dtype`` does."""
 
 import os
 
@@ -9,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_helpers import export_keys, nchw, small_model_pair
+from tests.test_torch_helpers import (export_keys, nchw, small_cfgs,
+                                      small_model_pair)
 from yolov4_tpu.config import DEFAULTS
+from yolov4_tpu.models import build_model as jax_build_model
 from yolov4_tpu_torch.models import build_model
 from yolov4_tpu_torch.models.decode import decode_layer, masked_anchors
+from yolov4_tpu_torch.utils.convert import state_dict_from_jax
 
 torch.set_num_threads(1)
 
@@ -107,3 +112,88 @@ def test_decode_goldens(layer_no):
     got_eval = decode_layer(raw, anc, layer_no, training=False)
     np.testing.assert_allclose(got_eval.numpy(), golden[f"eval{layer_no}"],
                                atol=1e-3, rtol=1e-5)
+
+
+def _bn_tensors(model):
+    return {name: t for m_name, m in model.named_modules()
+            if isinstance(m, torch.nn.BatchNorm2d)
+            for name, t in ((f"{m_name}.{n}", t) for n, t in
+                            (*m.named_parameters(), *m.named_buffers()))}
+
+
+def test_bfloat16_model_keeps_batchnorm_float32():
+    _, cfg = small_cfgs()
+    cfg["MODEL"]["COMPUTE_DTYPE"] = "bfloat16"
+    model = build_model(cfg, device="cpu")
+    bn = _bn_tensors(model)
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+    assert n_bn > 50 and len(bn) == 5 * n_bn
+    for name, t in bn.items():
+        want = torch.int64 if name.endswith("num_batches_tracked") \
+            else torch.float32
+        assert t.dtype == want, name
+    assert model.backbone.stage2.base.conv.weight.dtype == torch.bfloat16
+    # a float32 state_dict loads into BN unrounded (1 + 2^-12 is no
+    # bfloat16 value)
+    sd = {k: torch.full_like(v, 1 + 2 ** -12, dtype=torch.float32)
+          if v.is_floating_point() else v
+          for k, v in model.state_dict().items()}
+    model.load_state_dict(sd)
+    for name, t in _bn_tensors(model).items():
+        assert t.dtype == bn[name].dtype, name
+        if t.is_floating_point():
+            assert torch.equal(t, sd[name]), name
+
+
+def _shift_bn(variables, seed, lo=20.0, hi=60.0):
+    """Each BN's running mean moved by +-U(lo, hi), its bias by the same
+    amount in output units: the float32 network computes the same
+    function, with |mean| >> std (var is O(1)) everywhere."""
+    rng = np.random.default_rng(seed)
+
+    def walk(params, stats):
+        for key, sub in params.items():
+            if key == "norm":
+                shape = sub["scale"].shape
+                d = rng.uniform(lo, hi, shape) * rng.choice([-1, 1], shape)
+                std = np.sqrt(np.asarray(stats[key]["var"], np.float64)
+                              + 1e-5)
+                stats[key]["mean"] = np.asarray(stats[key]["mean"] + d,
+                                                np.float32)
+                sub["bias"] = np.asarray(sub["bias"] + d * sub["scale"] / std,
+                                         np.float32)
+            elif isinstance(sub, dict) and key in stats:
+                walk(sub, stats[key])
+
+    walk(variables["params"], variables["batch_stats"])
+    return variables
+
+
+def test_bfloat16_eval_forward_no_further_from_float32_than_jax(models):
+    """With BN statistics far from 0 (|mean| >> std), rounding them to
+    bfloat16 moves the normalized output by several standard deviations;
+    the JAX package normalizes with float32 statistics. The port's
+    bfloat16 forward is held against its float32 forward and must stay
+    within 1.5x of the JAX package's distance between the same two."""
+    import copy
+    jvars = _shift_bn(copy.deepcopy(models["jvars"]), 1)
+    x = jnp.asarray(models["x"])
+    j32 = np.asarray(models["apply"](jvars, x, True))
+    jcfg, cfg = small_cfgs()
+    jcfg["MODEL"]["COMPUTE_DTYPE"] = "bfloat16"
+    jmodel16 = jax_build_model(jcfg)
+    j16 = np.asarray(jax.jit(lambda v, x: jmodel16.apply(v, x, train=False))(
+        jvars, x), np.float32)
+    sd = state_dict_from_jax(jvars)
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg["MODEL"]["COMPUTE_DTYPE"] = dtype
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(sd)
+        with torch.no_grad():
+            outs[dtype] = model.eval()(nchw(models["x"])).float().numpy()
+    np.testing.assert_allclose(outs["float32"], j32, atol=2e-3, rtol=1e-3)
+    for cols in (slice(0, 4), slice(4, None)):          # boxes, scores
+        jax_err = np.abs(j16 - j32)[..., cols].mean()
+        port_err = np.abs(outs["bfloat16"] - outs["float32"])[..., cols].mean()
+        assert 0 < port_err <= 1.5 * jax_err, (cols, port_err, jax_err)

@@ -141,3 +141,42 @@ def test_weight_files_round_trip(slice_pair, tmp_path):
     torch.save(sd, pt)
     model = build_model(slice_pair["cfg"], device="cpu")
     model.load_state_dict(load_weights(str(pt)))
+
+
+def test_reference_wrapper_with_numpy_metadata_loads(slice_pair, tmp_path):
+    """The reference trainer saves COCOeval's numpy float64 APs beside the
+    weights: val, detect and BACKBONE_PRETRAINED read such a wrapper with
+    weights_only=True; any other global is refused by name."""
+    import argparse
+
+    from tests.fixtures import make_fake_coco
+    from yolov4_tpu_torch import val
+    from yolov4_tpu_torch.utils.checkpoint import load_pretrained_backbone
+    sd = slice_pair["sd"]
+    ckpt = tmp_path / "w.pth.tar"
+    torch.save({"epoch": np.int64(3), "state_dict": {
+        f"module.{k}": v for k, v in sd.items()},
+        "ap50": np.float64(0.5), "ap": [np.float64(0.25), np.float32(0.125)],
+        "dtype": np.dtype(np.float64)}, ckpt)
+    cfg_file = tmp_path / "small.cfg"
+    cfg_file.write_text(yaml.safe_dump({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "TEST": {"IMGSIZE": 64, **SLICE_TEST}}))
+    root = str(tmp_path / "coco")
+    make_fake_coco(root, "val2017", n_images=2, seed=5)
+    ap, ap50 = val.main([root, "-c", str(cfg_file), "--checkpoint",
+                         str(ckpt), "--device", "cpu", "--batch-size", "2"])
+    assert 0.0 <= ap <= ap50 <= 1.0
+    dest = detect.main(["--cfg", str(cfg_file), "--ckpt", str(ckpt),
+                        "--source", str(tmp_path / "coco" / "images" /
+                                        "val2017"),
+                        "--dest", str(tmp_path / "out"), "--device", "cpu"])
+    assert len(list(dest.iterdir())) == 2
+    model = build_model(slice_pair["cfg"], device="cpu")
+    load_pretrained_backbone(model, str(ckpt))
+    key = "backbone.stage2.base.conv.weight"
+    assert torch.equal(model.state_dict()[key], sd[key])
+    bad = tmp_path / "bad.pth.tar"
+    torch.save({"state_dict": sd, "args": argparse.Namespace(lr=1)}, bad)
+    with pytest.raises(ValueError, match=r"bad\.pth\.tar.*argparse\.Namespace"):
+        load_weights(str(bad))

@@ -272,6 +272,45 @@ def _params(model):
     return [p.detach().clone() for p in model.parameters()]
 
 
+def test_images_to_input_keeps_float32_and_follows_float64():
+    from yolov4_tpu_torch.parallel.train_step import images_to_input
+    x = torch.from_numpy(np.random.default_rng(3).random((2, 8, 8, 3),
+                                                         dtype=np.float32))
+    nchw_view = x.permute(0, 3, 1, 2)
+    got = images_to_input(x)
+    assert got.dtype == torch.float32 and torch.equal(got, nchw_view)
+    bf = x.to(torch.bfloat16)
+    assert torch.equal(images_to_input(bf), bf.permute(0, 3, 1, 2).float())
+    u8 = (x * 255).to(torch.uint8)
+    assert torch.equal(images_to_input(u8),
+                       u8.permute(0, 3, 1, 2).float() / 255.0)
+    got = images_to_input(x.double())
+    assert got.dtype == torch.float64 and torch.equal(got,
+                                                      nchw_view.double())
+
+
+def test_float64_step_stays_float64():
+    """A float64 model and batch train in float64 end to end (decode,
+    loss, the max-pool backward): what the card is held to against the CPU
+    without float32's conditioning."""
+    model, _, step, state, imgs, labels = _small_step(accum=1)
+    model.double()
+    p0 = _params(model)
+    state = step(state, imgs.double(), labels)
+    assert state.loss.dtype == torch.float64 and bool(torch.isfinite(
+        state.loss))
+    for p, before in zip(model.parameters(), p0):
+        assert p.dtype == torch.float64 and not torch.equal(p, before)
+    bn = model.backbone.stem.norm
+    assert bn.running_mean.dtype == torch.float64
+    # float32 from the same init and batch: close, but not the same sum
+    _, _, step32, state32, _, _ = _small_step(accum=1)
+    state32 = step32(state32, imgs, labels)
+    assert abs(float(state32.loss) - float(state.loss)) \
+        < 1e-5 * float(state.loss)
+    assert float(state32.loss) != float(state.loss)
+
+
 def test_accumulation_updates_every_k():
     model, _, step, state, imgs, labels = _small_step(accum=3)
     p0 = _params(model)

@@ -141,6 +141,23 @@ def test_cli_trains_on_the_cpu(tmp_path, coco_root):
     assert len(_records(tmp_path / "cli", "train")) == 2
 
 
+def test_cli_writes_stdout_log(tmp_path, coco_root):
+    """Once the config is read, the CLI logs to OUTPUT_DIR/stdout.log too,
+    in the stdout format, as the JAX package's train.py does."""
+    import logging
+    cfg = _write_cfg(tmp_path / "small.cfg", tmp_path / "logged")
+    try:
+        train_cli.main([coco_root, "-c", cfg, "--device", "cpu", "-e"])
+        log = (tmp_path / "logged" / "stdout.log").read_text()
+    finally:
+        from yolov4_tpu_torch.utils.logging import setup_logging
+        setup_logging()   # close the file handler
+    assert "config: " in log and "AP[.50:.95] = " in log
+    first = log.splitlines()[0]
+    assert first.startswith("[") and "][INFO] train.py:" in first
+    assert not logging.getLogger("yolov4_tpu_torch").propagate
+
+
 def test_cli_without_device_needs_cuda(tmp_path, coco_root, monkeypatch):
     """No --device means CUDA; without a card the CLI stops with a
     message and never falls back to the CPU."""

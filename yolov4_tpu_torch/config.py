@@ -10,10 +10,13 @@ K2 (ops/csp_cuda.py), with BatchNorm folded into the convs; the default
 stays false.
 
 Keys that only steer TPU lowerings (``MODEL.S2D_STEM``, ``MODEL.WPACK``,
-``MODEL.SPLIT_HEAD``, ``MODEL.QUANT*``, ``TEST.S2D_WIRE``,
+``MODEL.SPLIT_HEAD``, ``MODEL.QUANT_SPAN/CHAIN/STEM``, ``TEST.S2D_WIRE``,
 ``TEST.APPROX_TOPK``) are accepted and validated so that every config file
 of the JAX package loads unchanged; the port runs the plain path they all
-reduce to and ignores them.
+reduce to and ignores them. ``MODEL.QUANT`` loads too, but a value other
+than "none" (int8 inference, another function) makes ``build_model``
+raise. ``AUGMENTATION.DEVICE`` selects the on-device augmentation
+(data/device_aug.py).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
         # TPU lowerings of the same math; no-ops in the port
         "WPACK": "auto",
         "SPLIT_HEAD": "auto",
+        # int8 inference; anything but "none" makes build_model raise
         "QUANT": "none",
         "QUANT_SPAN": "full",
         "QUANT_CHAIN": True,

@@ -2,8 +2,9 @@
 data/pipeline.py for one process (replacing torch DataLoader +
 DistributedSampler, reference yolo/data/build.py:19-56).
 
-Batches are NHWC numpy arrays with the stacked per-sample target arrays
-and 'batch_mask'. Augmentation runs in spawned worker processes, one task
+Batches are NHWC numpy arrays (with AUGMENTATION.DEVICE, uint8 mosaic
+canvases [B, 4, S, S, 3]) with the stacked per-sample target arrays and
+'batch_mask'. Augmentation runs in spawned worker processes, one task
 per sample with a bounded run-ahead of ``prefetch_batches`` batches, and
 every random draw is seeded from the sample's position (seed, epoch,
 batch index, slot), never from a worker's identity: any worker count
@@ -192,13 +193,21 @@ def build_val_loader(cfg: Dict, data_root: str, seed: int = 0) -> DataLoader:
 def build_data(cfg: Dict, data_root: str, seed: int = 0):
     """Train and val loaders (reference data/build.py:19): train2017 with
     the train transform, shuffled, short last batch dropped; and
-    build_val_loader's."""
+    build_val_loader's. With AUGMENTATION.DEVICE the train transform is
+    CanvasTransform: the host decodes and resizes the mosaic's members and
+    the train step augments them on the device (data/device_aug.py)."""
     from yolov4_tpu_torch.data.coco import COCODataset
+    from yolov4_tpu_torch.data.device_aug import (CanvasTransform,
+                                                  device_aug_config)
     from yolov4_tpu_torch.data.transforms import Transform
 
+    if device_aug_config(cfg) is not None:
+        train_transform = CanvasTransform(cfg)
+    else:
+        train_transform = Transform(cfg, is_train=True)
     train_dataset = COCODataset(
         data_root, img_size=cfg["TRAIN"]["IMGSIZE"],
-        transform=Transform(cfg, is_train=True),
+        transform=train_transform,
         num_classes=cfg["MODEL"]["N_CLASSES"], name="train2017",
         is_train=True)
     train_loader = DataLoader(

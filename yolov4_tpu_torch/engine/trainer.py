@@ -2,7 +2,9 @@
 the port's copy of the JAX package's engine/trainer.py on one device.
 
 Epoch loop: host loading in worker processes -> an upload of each batch
-(TRAIN.TRANSFER_DTYPE on the host, pinned) -> one train step per batch
+(TRAIN.TRANSFER_DTYPE on the host, pinned; with AUGMENTATION.DEVICE the
+uint8 mosaic canvases and member boxes, augmented inside the step on the
+device) -> one train step per batch
 (forward, loss, backward, accumulation, optimizer, LR, EMA; see
 parallel/train_step.py) -> periodic throughput/loss logging -> COCO
 validation through the Predictor after each epoch (the greedy-NMS kernel
@@ -22,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from yolov4_tpu_torch.data.device_aug import device_aug_config
 from yolov4_tpu_torch.data.pipeline import build_data, build_val_loader
 from yolov4_tpu_torch.engine.evaluator import validate
 from yolov4_tpu_torch.engine.predictor import Predictor, resolve_device
@@ -88,6 +91,11 @@ class Trainer:
                                           or [])]
         self.ms_every = int(cfg["TRAIN"].get("MULTISCALE_EVERY", 10))
         self._seed = seed
+        # AUGMENTATION.DEVICE: the host decodes and resizes the mosaic's
+        # members, the step augments them (data/device_aug.py)
+        self.device_aug = device_aug_config(cfg)
+        if self.device_aug is not None:
+            logger.info("device-side augmentation enabled")
         self.state = create_train_state(self.model, ema=self.ema_decay > 0)
         self.train_step = None
         if not evaluate_only:
@@ -97,7 +105,8 @@ class Trainer:
                 compute_dtype=DTYPES[cfg["MODEL"]["COMPUTE_DTYPE"]],
                 skip_nonfinite=bool(cfg["TRAIN"].get("SKIP_NONFINITE_UPDATES",
                                                      False)),
-                ema_decay=self.ema_decay)
+                ema_decay=self.ema_decay, device_aug=self.device_aug,
+                aug_seed=seed)
 
         self.start_epoch = cfg["TRAIN"]["START_EPOCH"]
         self.best_ap50 = 0.0
@@ -180,9 +189,12 @@ class Trainer:
     def _put_batch(self, imgs: np.ndarray, labels: np.ndarray):
         """Host float32 NHWC batch -> device tensors, the images converted
         on the host to TRAIN.TRANSFER_DTYPE (bfloat16 halves the bytes,
-        uint8 quarters them) and uploaded from pinned memory."""
+        uint8 quarters them) and uploaded from pinned memory. Device-aug
+        canvases [B, 4, S, S, 3] are uint8 already and go up as they are."""
         transfer = self.cfg["TRAIN"].get("TRANSFER_DTYPE", "bfloat16")
-        if transfer == "uint8":
+        if imgs.ndim == 5:
+            host = torch.from_numpy(np.ascontiguousarray(imgs))
+        elif transfer == "uint8":
             host = torch.from_numpy(
                 np.clip(imgs * 255.0 + 0.5, 0, 255).astype(np.uint8))
         else:
@@ -209,11 +221,13 @@ class Trainer:
             # the loader evaluates the same schedule per batch
             self.train_loader.size_schedule = self._ms_size_for
         cur_size = cfg["TRAIN"]["IMGSIZE"]
+        label_key = ("member_boxes" if self.device_aug is not None
+                     else "padded_labels")
         t_epoch = end = time.time()
         n_images = 0
         for i, (imgs, target) in enumerate(self.train_loader, start=skip):
-            cur_size = imgs.shape[1]
-            images, labels = self._put_batch(imgs, target["padded_labels"])
+            cur_size = imgs.shape[-2]
+            images, labels = self._put_batch(imgs, target[label_key])
             self.state = self.train_step(self.state, images, labels)
             n_images += imgs.shape[0]
             self._host_step += 1

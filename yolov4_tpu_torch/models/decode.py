@@ -35,6 +35,13 @@ def masked_anchors(anchors: Sequence[Sequence[float]],
     return np.asarray(sel, dtype=np.float32) / float(stride)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when its dtype is wider (float64): the
+    decode, the loss and the train step's input follow a float64 run and
+    compute everything narrower in float32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def split_head_output(raw: torch.Tensor, n_anchors: int,
                       n_ch: int) -> torch.Tensor:
     """[B, A*n_ch, f_h, f_w] NCHW -> [B, A, f_h, f_w, n_ch], anchor-major
@@ -57,15 +64,16 @@ def decode_layer(raw: torch.Tensor, anchors_grid, layer_no: int,
     Returns:
       training: dict(layer_no, output=[B,A,f,f,5+C] with raw wh,
                      pred=[B,A,f,f,4] decoded cxcywh in grid units)
-      eval: [B, A*f_h*f_w, 5+C] float32, boxes in input pixels.
+      eval: [B, A*f_h*f_w, 5+C] float32 (float64 for a float64 raw),
+            boxes in input pixels.
     """
-    anc = torch.as_tensor(anchors_grid, dtype=torch.float32,
-                          device=raw.device)
+    dt = torch.promote_types(raw.dtype, torch.float32)
+    anc = torch.as_tensor(anchors_grid, device=raw.device).to(dt)
     n_anchors = anc.shape[0]
     n_ch = raw.shape[1] // n_anchors
     stride = STRIDES[layer_no]
 
-    x = split_head_output(raw, n_anchors, n_ch).float()  # [B, A, fh, fw, n_ch]
+    x = split_head_output(raw, n_anchors, n_ch).to(dt)  # [B, A, fh, fw, n_ch]
     b, _, fh, fw, _ = x.shape
 
     txy = torch.sigmoid(x[..., 0:2])
@@ -73,8 +81,8 @@ def decode_layer(raw: torch.Tensor, anchors_grid, layer_no: int,
     objcls = torch.sigmoid(x[..., 4:])
 
     cy, cx = torch.meshgrid(
-        torch.arange(fh, dtype=torch.float32, device=raw.device),
-        torch.arange(fw, dtype=torch.float32, device=raw.device),
+        torch.arange(fh, dtype=dt, device=raw.device),
+        torch.arange(fw, dtype=dt, device=raw.device),
         indexing="ij")
     grid = torch.stack([cx, cy], dim=-1)  # [fh, fw, 2]
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolov4_tpu_torch.models.darknet import scale_channels
+from yolov4_tpu_torch.models.decode import at_least_f32
 from yolov4_tpu_torch.models.layers import ConvBNAct
 
 
@@ -54,7 +55,7 @@ class _MaxPoolSplitTies(torch.autograd.Function):
             for dx in range(size):
                 eq = (xp[:, :, dy:dy + h, dx:dx + w] == y).float()
                 cnt = eq if cnt is None else cnt + eq
-        gn = (g.float() / cnt).to(g.dtype)
+        gn = (at_least_f32(g) / cnt).to(g.dtype)
         # dL/dx[q] = sum over the windows p that hold q of
         # g[p] / ties[p] * [x[q] == y[p]]  (y padded with +inf, g with 0)
         yp = F.pad(y, (pad, pad, pad, pad), value=float("inf"))

@@ -8,10 +8,13 @@ The model consumes NCHW float images in [0, 1] and returns:
 
 ``build_model(cfg, device=...)`` builds the module, draws the reference
 init from an explicit ``torch.Generator`` (on the CPU, so a seed gives the
-same weights on every device), and moves it to the device and its layers
-to ``MODEL.COMPUTE_DTYPE``; with ``train=True`` the parameters stay in
-float32 (the JAX package's ``param_dtype``) and a bfloat16 compute dtype
-comes from ``torch.autocast`` in the train step. ``MODEL.PALLAS_CSP``
+same weights on every device), and moves it to the device and its
+convolutions to ``MODEL.COMPUTE_DTYPE``. BatchNorm's parameters and
+running statistics stay float32, as the JAX package's ``param_dtype``:
+a bfloat16 activation is normalized with float32 statistics and comes
+out in bfloat16 (flax's ``dtype=bfloat16, param_dtype=float32``). With
+``train=True`` every parameter stays float32 and a bfloat16 compute
+dtype comes from ``torch.autocast`` in the train step. ``MODEL.PALLAS_CSP``
 sends the eval forward of CSP stages 1-3 through K2 (see
 darknet.Backbone).
 """
@@ -85,10 +88,16 @@ def build_model(cfg: Dict, device=None,
     """Construct the detector from a config dict (reference
     model/build.py:19), initialise it from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None) and move it to ``device``, its
-    layers in ``MODEL.COMPUTE_DTYPE``, or in float32 with ``train``."""
+    convolutions in ``MODEL.COMPUTE_DTYPE`` (float32 with ``train``) and
+    its BatchNorms in float32."""
     model_cfg = cfg["MODEL"]
     if model_cfg["TYPE"] != "YOLOv4":
         raise ValueError(f"unsupported MODEL.TYPE {model_cfg['TYPE']!r}")
+    if model_cfg.get("QUANT", "none") != "none":
+        raise ValueError(
+            f"MODEL.QUANT {model_cfg['QUANT']!r}: int8 inference is not "
+            "ported to PyTorch, and running bfloat16 instead would compute "
+            "another function; set MODEL.QUANT to 'none'")
     model = YOLOv4(
         n_classes=model_cfg["N_CLASSES"],
         anchors=model_cfg["ANCHORS"],
@@ -106,5 +115,9 @@ def build_model(cfg: Dict, device=None,
              else DTYPES[model_cfg.get("COMPUTE_DTYPE", "bfloat16")])
     model.to(device=device)
     for layers in (model.backbone, model.neck, model.head):
-        layers.to(dtype=dtype)
+        for m in layers.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                continue
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(dtype)
     return model

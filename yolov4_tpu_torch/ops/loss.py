@@ -35,7 +35,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from yolov4_tpu_torch.models.decode import STRIDES
+from yolov4_tpu_torch.models.decode import STRIDES, at_least_f32
 from yolov4_tpu_torch.ops.boxes import (iou_pairwise_safe,
                                         iou_variant_elementwise)
 
@@ -120,7 +120,7 @@ class YOLOLoss:
         self.box_loss = box_loss
 
     def __call__(self, outputs: List[Dict], targets: Dict) -> torch.Tensor:
-        labels = targets["padded_labels"].float()
+        labels = targets["padded_labels"]
         total = None
         for out in outputs:
             layer = self._layer_loss(out["layer_no"], out["output"],
@@ -130,15 +130,16 @@ class YOLOLoss:
 
     def _layer_loss(self, layer_no: int, output: torch.Tensor,
                     pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        output = output.float()
-        pred = pred.float()
-        dev = output.device
+        output = at_least_f32(output)
+        pred = at_least_f32(pred)
+        labels = labels.to(output.dtype)
+        dt, dev = output.dtype, output.device
         b, n_anchors, fsize, _, _ = output.shape
         stride = float(STRIDES[layer_no])
         mask = self.anchor_mask[layer_no]
-        anchors_all = torch.from_numpy(self.anchors / stride).to(dev)
+        anchors_all = torch.from_numpy(self.anchors / stride).to(dev, dt)
         layer_anchors = torch.from_numpy(
-            self.anchors[np.asarray(mask)] / stride).to(dev)
+            self.anchors[np.asarray(mask)] / stride).to(dev, dt)
 
         with torch.no_grad():
             valid = labels.sum(dim=2) > 0                               # [B, K]
@@ -163,7 +164,7 @@ class YOLOLoss:
                                    torch.zeros_like(pred_iou))
             pred_best = pred_iou.max(dim=-1).values.reshape(
                 b, n_anchors, fsize, fsize)
-            obj_mask = (pred_best <= self.ignore_thresh).float()
+            obj_mask = (pred_best <= self.ignore_thresh).to(dt)
 
             # assigned rows write to (b, anchor, j, i); the others to the
             # extra anchor slot n_anchors, cut off below
@@ -174,8 +175,8 @@ class YOLOLoss:
             i_idx = torch.where(assign, truth_i, torch.zeros_like(truth_i))
             index = (batch_idx, a_idx, j_idx, i_idx)
 
-            frac_x = truth[..., 0] - truth[..., 0].to(torch.int32).float()
-            frac_y = truth[..., 1] - truth[..., 1].to(torch.int32).float()
+            frac_x = truth[..., 0] - truth[..., 0].to(torch.int32).to(dt)
+            frac_y = truth[..., 1] - truth[..., 1].to(torch.int32).to(dt)
             anchor_wh = layer_anchors[best_n % n_anchors]               # [B, K, 2]
             tw = torch.log(truth[..., 2] / anchor_wh[..., 0] + 1e-16)
             th = torch.log(truth[..., 3] / anchor_wh[..., 1] + 1e-16)
@@ -187,7 +188,7 @@ class YOLOLoss:
             cells = (b, n_anchors + 1, fsize, fsize)
 
             def scat(values):
-                out = torch.zeros(cells, dtype=torch.float32, device=dev)
+                out = torch.zeros(cells, dtype=dt, device=dev)
                 return out.index_put_(index, values)[:, :n_anchors]
 
             ones = torch.ones_like(frac_x)
@@ -195,7 +196,7 @@ class YOLOLoss:
                                  dim=1).index_put_(index, ones)[:, :n_anchors]
             tgt_mask = scat(ones)
             tgt_scale = scat(scale)
-            t_cls = torch.zeros(cells + (self.n_classes,), dtype=torch.float32,
+            t_cls = torch.zeros(cells + (self.n_classes,), dtype=dt,
                                 device=dev)
             t_cls = t_cls.index_put_(index + (cls_idx,), ones)[:, :n_anchors]
             t_obj = tgt_mask * obj_mask

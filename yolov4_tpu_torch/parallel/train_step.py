@@ -4,6 +4,10 @@ parallel/train_step.py for a one-device mesh.
 One call is one micro-step (the reference's loop body, engine/build.py:
 55-69):
 
+  * with ``device_aug``, the batch is uint8 mosaic canvases and member
+    boxes, augmented first on their device (data/device_aug.py) from a
+    generator seeded by (``aug_seed``, micro-step): the stream depends on
+    the seed and the step alone, so a resumed run repeats it;
   * the forward in train mode under ``torch.autocast`` when the compute
     dtype is bfloat16 (the parameters stay float32), the loss in float32;
   * the backward of loss / ACCUMULATION_STEPS, summed into ``.grad``;
@@ -30,6 +34,9 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from yolov4_tpu_torch.data.device_aug import augment_batch
+from yolov4_tpu_torch.models.decode import at_least_f32
+
 
 @dataclass
 class TrainState:
@@ -52,12 +59,22 @@ def create_train_state(model: nn.Module, ema: bool = False) -> TrainState:
 
 def images_to_input(images: torch.Tensor) -> torch.Tensor:
     """NHWC device batch -> the model's NCHW float input: uint8 is scaled
-    by 1/255, float32 and bfloat16 are taken as they are (already /255).
-    The permuted view is channels-last in memory."""
+    by 1/255, bfloat16 and float32 become float32 and float64 stays
+    float64 (already /255). The permuted view is channels-last in
+    memory."""
     x = images.permute(0, 3, 1, 2)
     if x.dtype == torch.uint8:
         return x.float() / 255.0
-    return x.float()
+    return at_least_f32(x)
+
+
+def aug_generator(device: torch.device, aug_seed: int,
+                  step: int) -> torch.Generator:
+    """The device augmentation's generator of micro-step ``step`` (the
+    JAX package's ``fold_in(fold_in(key, step), shard)``, shard 0)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(hash((aug_seed, step)) & 0x7FFFFFFFFFFFFFFF)
+    return gen
 
 
 def make_train_step(model: nn.Module, criterion, optimizer: torch.optim.Optimizer,
@@ -65,12 +82,19 @@ def make_train_step(model: nn.Module, criterion, optimizer: torch.optim.Optimize
                     accumulation_steps: int = 1,
                     compute_dtype: torch.dtype = torch.float32,
                     skip_nonfinite: bool = False,
-                    ema_decay: float = 0.0) -> Callable:
+                    ema_decay: float = 0.0,
+                    device_aug: Optional[Dict] = None,
+                    aug_seed: int = 0) -> Callable:
     """Returns step(state, images, labels) -> state.
 
     images: [B, S, S, 3] NHWC on the model's device (uint8, or float in
     [0, 1]); labels: [B, K, 5] float32 (cx, cy, w, h, cls) in input
     pixels. The model, its optimizer and ``state`` are updated in place.
+
+    ``device_aug`` (augment_batch's keyword arguments besides size and
+    max_labels): images are uint8 canvases [B, 4, S, S, 3] and labels the
+    member boxes [B, 4, K, 5] (x1, y1, x2, y2, cls in canvas pixels); the
+    step augments them into [B, S, S, 3] and [B, K, 5] first.
     """
     params = [p for p in model.parameters()]
     names = [n for n, _ in model.named_parameters()]
@@ -80,6 +104,11 @@ def make_train_step(model: nn.Module, criterion, optimizer: torch.optim.Optimize
     def step(state: TrainState, images: torch.Tensor,
              labels: torch.Tensor) -> TrainState:
         model.train()
+        if device_aug is not None:
+            gen = aug_generator(images.device, aug_seed, state.step)
+            images, labels = augment_batch(
+                gen, images, labels, size=images.shape[2],
+                max_labels=labels.shape[2], **device_aug)
         x = images_to_input(images)
         if skip_nonfinite:
             saved = [b.clone() for b in buffers]

@@ -17,7 +17,11 @@ the reference (main_amp.py:34-58):
     weights (bfloat16 needs no loss scaling);
   * --sync_bn is accepted and not applied, as in the reference's YOLO
     path (per-replica BN);
-  * resume restores the optimizer and the schedule's step for real.
+  * resume restores the optimizer and the schedule's step for real;
+  * the log goes to stdout and, once the config is read, to
+    ``OUTPUT_DIR/stdout.log`` as well;
+  * ``AUGMENTATION.DEVICE: true`` augments on the card inside the train
+    step (data/device_aug.py); the loader then decodes and resizes only.
 """
 
 from __future__ import annotations
@@ -92,6 +96,8 @@ def main(argv: Optional[Sequence[str]] = None):
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
         logger.info(f"deterministic mode: base seed {args.seed}")
+    # again with the output directory, now that the config names it
+    setup_logging(output_dir=cfg["TRAIN"]["OUTPUT_DIR"])
     logger.info(f"config: {args.cfg}, compute {cfg['MODEL']['COMPUTE_DTYPE']}, "
                 f"device {device}")
 

@@ -27,7 +27,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from yolov4_tpu_torch.utils.convert import load_weights
+from yolov4_tpu_torch.utils.convert import load_weights, torch_load
 
 CKPT_NAME = "checkpoint.pth"
 BEST_NAME = "model_best.pth"
@@ -74,7 +74,7 @@ def save_checkpoint(bundle: Dict[str, Any], is_best: bool,
 def load_checkpoint_raw(path: str) -> Dict[str, Any]:
     """A bundle written by save_checkpoint, on the CPU."""
     refuse_jax_checkpoint(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return torch_load(path)
 
 
 def load_pretrained_backbone(model: nn.Module, path: str) -> None:

@@ -13,12 +13,18 @@ plain ``load_state_dict``. This module adds:
     ``running_var``, plus ``num_batches_tracked`` = 0 for each BatchNorm
     so that a strict load succeeds;
   * ``load_weights``: a ``.pth``/``.pth.tar``/``.pt``/``.npz`` file -> a
-    state_dict of tensors, with a DDP ``module.`` prefix stripped.
+    state_dict of tensors, with a DDP ``module.`` prefix stripped;
+  * ``torch_load``: ``torch.load(weights_only=True)`` that also lets numpy
+    scalars and dtypes through (the reference trainer's wrapper stores
+    COCOeval's numpy float64 APs beside the weights) and names the global
+    it refuses otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
+
+import pickle
 
 import numpy as np
 import torch
@@ -99,6 +105,40 @@ def _strip_ddp(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             torch.as_tensor(v) for k, v in state_dict.items()}
 
 
+def _numpy_globals() -> List:
+    """What unpickling a numpy scalar needs: ``multiarray.scalar`` (under
+    numpy 1's and numpy 2's module names), ``np.dtype`` and the dtype
+    classes of the scalar types a wrapper holds."""
+    core = getattr(np, "_core", None) or np.core
+    scalar = core.multiarray.scalar
+    kinds = (np.float64, np.float32, np.int64, np.int32, np.bool_)
+    return ([(scalar, "numpy.core.multiarray.scalar"),
+             (scalar, "numpy._core.multiarray.scalar"), np.dtype]
+            + [type(np.dtype(k)) for k in kinds])
+
+
+def torch_load(path: str) -> Any:
+    """``torch.load(path, weights_only=True)`` on the CPU, with numpy
+    scalars and dtypes allowed. Any other non-tensor global is refused
+    with an error that names the file and the global."""
+    try:
+        with torch.serialization.safe_globals(_numpy_globals()):
+            return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as err:
+        allowed = {"numpy.core.multiarray.scalar",
+                   "numpy._core.multiarray.scalar", "numpy.dtype"}
+        try:
+            names = [g for g in torch.serialization
+                     .get_unsafe_globals_in_checkpoint(path)
+                     if g not in allowed and not g.startswith("numpy.dtypes.")]
+        except Exception:  # noqa: BLE001 - the listing is only a hint
+            names = []
+        raise ValueError(
+            f"{path}: torch.load(weights_only=True) refuses the global "
+            f"{', '.join(names) if names else err}; only tensors, "
+            "containers, Python scalars and numpy scalars load") from None
+
+
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """Read a weights file into a state_dict of CPU tensors.
 
@@ -106,13 +146,13 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
     ``torch.save`` file: a bare state_dict, the reference trainer's
     ``{epoch, state_dict, ...}`` wrapper (utils.py:17-24) or the port
     trainer's ``{variables, opt_state, meta, ...}`` bundle
-    (utils/checkpoint.py), read with ``weights_only=True``. A leading DDP
+    (utils/checkpoint.py), read by ``torch_load``. A leading DDP
     ``module.`` prefix is stripped.
     """
     if str(path).endswith(".npz"):
         with np.load(path) as blob:
             return _strip_ddp({k: blob[k] for k in blob.files})
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    blob = torch_load(path)
     for key in ("state_dict", "variables"):
         if isinstance(blob, Mapping) and isinstance(blob.get(key), Mapping):
             blob = blob[key]

@@ -1,12 +1,15 @@
 """Logging for the port's entry points (the JAX package's utils/logging.py,
-one process): the 'yolov4_tpu_torch' logger writes to stdout.
-``builtins.print`` is never patched.
+one process): the 'yolov4_tpu_torch' logger writes to stdout and, once an
+output directory is known, to ``OUTPUT_DIR/stdout.log`` in the same
+format. ``builtins.print`` is never patched.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
+from typing import Optional
 
 _FORMATTER = logging.Formatter(
     "[%(asctime)s][%(levelname)s] %(filename)s:%(lineno)3d: %(message)s",
@@ -15,16 +18,24 @@ _FORMATTER = logging.Formatter(
 ROOT = "yolov4_tpu_torch"
 
 
-def setup_logging() -> logging.Logger:
-    """Configure the package's root logger; calling it again replaces the
-    handler."""
+def setup_logging(output_dir: Optional[str] = None) -> logging.Logger:
+    """Configure the package's root logger: stdout, plus
+    ``output_dir/stdout.log`` (appended to) when ``output_dir`` is given.
+    Calling it again replaces (and closes) the handlers."""
     logger = logging.getLogger(ROOT)
+    for handler in logger.handlers:
+        handler.close()
     logger.handlers = []
     logger.propagate = False
     logger.setLevel(logging.DEBUG)
-    stream = logging.StreamHandler(stream=sys.stdout)
-    stream.setFormatter(_FORMATTER)
-    logger.addHandler(stream)
+    handlers = [logging.StreamHandler(stream=sys.stdout)]
+    if output_dir is not None:
+        os.makedirs(output_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(output_dir,
+                                                         "stdout.log")))
+    for handler in handlers:
+        handler.setFormatter(_FORMATTER)
+        logger.addHandler(handler)
     return logger
 
 
