@@ -90,6 +90,24 @@ line:
                augment_batch timed at 608/b8 (per call and device time),
                and the full-width train step with it inside beside the
                step on the same batch already augmented.
+ 12. ddp     — data parallelism (parallel/dist.py): two ranks on the one
+               card over gloo (spawned, LOCAL_RANK 0 each), float64, WIDTH
+               0.25 at 128, batch 4 per rank, SGD, ACCUMULATION_STEPS 2,
+               two micro-steps, against the same two ranks on the CPU
+               (TRAIN_F64_TOL_*), the ranks' parameters equal, the BN
+               statistics the mean of each rank's one-process run (per
+               replica, averaged); NCCL at world
+               size 1, full width 608/b8 bf16 Adam: the DDP-wrapped step
+               against the plain step from one init (two updates; the
+               largest parameter gap, beside a second plain run's), both
+               timed with CUDA events; ``torchrun --nproc_per_node 1 -m
+               yolov4_tpu_torch.train`` for one epoch with PALLAS_CSP val
+               (checkpoint, metrics.jsonl, K1/K2 counted in its eval
+               record); ``Trainer.fit`` in two ranks on the one card over
+               gloo with an odd val2017 (the wrap-padded image scored once):
+               equal AP and parameters, files from rank 0 only, K1 and K2
+               in each rank's validation. NCCL above one rank needs more
+               than one card and is not run.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -172,6 +190,11 @@ AUG_TOL_BOX_PX = 1e-3
 # run: the relative gap of the first two losses after the resume (same
 # weights, same augmented batches).
 RESUME_TOL = 1e-6
+# Phase 12 (data parallel): each group of spawned ranks, and the torchrun
+# run, must end within this many seconds; its synthetic COCO.
+DDP_LIMIT_S = 600
+DDP_TRAIN_IMAGES = 32
+DDP_VAL_IMAGES = 17
 STAGE_SHAPES = ((16, 304, 304, 64, 0), (16, 152, 152, 128, 2),
                 (16, 76, 76, 256, 8))
 RAGGED_SHAPES = ((2, 9, 13, 16, 0), (3, 11, 7, 24, 3), (2, 5, 7, 18, 1))
@@ -973,11 +996,11 @@ def phase_val(val_mod, coco_ids, nms_cuda, csp_cuda, report):
     return k2
 
 
-def small_train_batches(device):
+def small_train_batches(device, seed=11):
     """Two batches at 128x128, batch 4: images from a seed, three boxes per
     image on three different scales (so that no two share an anchor cell,
     where the written box would depend on the device's write order)."""
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     out = []
     for _ in range(2):
         imgs = torch.from_numpy(rng.random((4, 128, 128, 3),
@@ -992,20 +1015,23 @@ def small_train_batches(device):
     return out
 
 
-def train_two_steps(cfg, build_model, train, device, seed, dtype):
+def train_two_steps(cfg, build_model, train, device, seed, dtype,
+                    batch_seed=11, dist=None):
     """Two SGD micro-steps (ACCUMULATION_STEPS 2) of the WIDTH 0.25 model
-    from init ``seed`` on ``device`` in ``dtype``: (losses, initial
-    state_dict, final state_dict), on the CPU."""
+    from init ``seed`` on ``device`` in ``dtype`` (data-parallel over the
+    process group ``dist`` when given) on small_train_batches(batch_seed):
+    (losses, initial state_dict, final state_dict), on the CPU."""
     model = build_model(cfg, device=device, train=True,
                         generator=torch.Generator().manual_seed(seed))
     model = model.to(dtype)
     init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     step = train.make_train_step(
         model, train.build_criterion(cfg), train.build_optimizer(cfg, model),
-        train.build_lr_schedule(cfg, len_epoch=4), accumulation_steps=2)
+        train.build_lr_schedule(cfg, len_epoch=4), accumulation_steps=2,
+        dist=dist)
     state = train.create_train_state(model)
     losses = []
-    for imgs, labels in small_train_batches(device):
+    for imgs, labels in small_train_batches(device, batch_seed):
         state = step(state, imgs.to(dtype), labels)
         losses.append(float(state.loss))
     return losses, init, {k: v.detach().cpu() for k, v in
@@ -1052,10 +1078,7 @@ def phase_train_vs_cpu(cfg_cls, build_model, train, report):
     CPU, SGD, ACCUMULATION_STEPS 2, two micro-steps from one init seed: in
     float32 at TRAIN_SEED (TRAIN_TOL_*), then in float64 at init seeds 1
     and 5 (TRAIN_F64_TOL_*)."""
-    cfg = cfg_cls.from_dict({
-        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
-        "OPTIMIZER": {"TYPE": "SGD", "LR": 0.01},
-        "TRAIN": {"ACCUMULATION_STEPS": 2}})
+    cfg = small_train_cfg(cfg_cls)
     params = dict(build_model(cfg, device="cpu").named_parameters())
     with tf32_off():
         runs = {dev: train_two_steps(cfg, build_model, train, dev, TRAIN_SEED,
@@ -1502,6 +1525,417 @@ def phase_device_aug(cfg_cls, build_model, train, report):
                                 step_plain_ms=plain_step_ms)
 
 
+def train_api():
+    """The port's training functions phases 9-12 drive."""
+    from yolov4_tpu_torch.ops.loss import build_criterion
+    from yolov4_tpu_torch.optim import build_lr_schedule, build_optimizer
+    from yolov4_tpu_torch.parallel.train_step import (create_train_state,
+                                                      images_to_input,
+                                                      make_train_step)
+    return SimpleNamespace(
+        build_criterion=build_criterion, build_optimizer=build_optimizer,
+        build_lr_schedule=build_lr_schedule, make_train_step=make_train_step,
+        create_train_state=create_train_state, images_to_input=images_to_input)
+
+
+def small_train_cfg(cfg_cls):
+    """Phase 9's configuration: WIDTH 0.25, SGD, ACCUMULATION_STEPS 2."""
+    return cfg_cls.from_dict({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "OPTIMIZER": {"TYPE": "SGD", "LR": 0.01},
+        "TRAIN": {"ACCUMULATION_STEPS": 2}})
+
+
+def ddp_f64_task(rank):
+    """Phase 12.1 on one rank: two float64 micro-steps over the group on
+    the card, then on the CPU, each on this rank's own batches; and the
+    same two on the card without the group ("alone")."""
+    from yolov4_tpu_torch.config import Config
+    from yolov4_tpu_torch.models import build_model
+    from yolov4_tpu_torch.parallel import dist
+    cfg, train = small_train_cfg(Config), train_api()
+    out = {dev: train_two_steps(cfg, build_model, train, dev, TRAIN_SEED,
+                                torch.float64, batch_seed=11 + rank,
+                                dist=dist.world_group())
+           for dev in ("cuda", "cpu")}
+    out["alone"] = train_two_steps(cfg, build_model, train, "cuda",
+                                   TRAIN_SEED, torch.float64,
+                                   batch_seed=11 + rank)
+    return out
+
+
+def params_digest(model) -> str:
+    import hashlib
+    digest = hashlib.sha256()
+    for t in (*model.parameters(), *model.buffers()):
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def ddp_fit_task(rank, root, raw):
+    """Phase 12.4 on one rank: Trainer.fit with OUTPUT_DIR fit_r<rank> and
+    the CLI's logging, K1's and K2's counts set to 0 just before and read
+    just after."""
+    from yolov4_tpu_torch.config import Config
+    from yolov4_tpu_torch.engine.trainer import Trainer
+    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
+    from yolov4_tpu_torch.utils.logging import setup_logging
+    raw = {k: dict(v) for k, v in raw.items()}
+    raw["TRAIN"]["OUTPUT_DIR"] = str(Path(root) / f"fit_r{rank}")
+    setup_logging(process_index=rank, output_dir=raw["TRAIN"]["OUTPUT_DIR"])
+    trainer = Trainer(Config.from_dict(raw), root, device="cuda",
+                      print_freq=1)
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    ap, ap50 = trainer.fit()
+    return {"ap": ap, "ap50": ap50, "step": trainer.state.step,
+            "k1": nms_cuda.greedy_nms_mask_cuda.launches,
+            "k2": csp_cuda.fused_csp_stage_cuda.launches,
+            "device": str(trainer.device),
+            "digest": params_digest(trainer.model)}
+
+
+DDP_TASKS = {"f64": ddp_f64_task, "fit": ddp_fit_task}
+
+
+def ddp_rank(rank, world, init_file, tasks, work):
+    """Target of phase 12's spawned ranks: rank ``rank`` of ``world``, each
+    on the one card (LOCAL_RANK 0, as one process per node), in a gloo
+    group that meets through ``init_file``; runs each (name, kwargs) of
+    ``tasks`` in turn and saves what it returns, with its seconds, to
+    ``<work>/<name>.rank<rank>.pt``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    from yolov4_tpu_torch.parallel import dist
+    dist.init_distributed(backend="gloo", device="cuda",
+                          init_method=f"file://{init_file}",
+                          timeout_s=DDP_LIMIT_S)
+    try:
+        for name, kwargs in tasks:
+            t0 = time.time()
+            result = DDP_TASKS[name](rank, **kwargs)
+            result["seconds"] = time.time() - t0
+            torch.save(result, Path(work) / f"{name}.rank{rank}.pt")
+    finally:
+        dist.shutdown()
+
+
+def start_ranks(tasks, work, world=2):
+    """``world`` spawned ranks running ``tasks`` (ddp_rank), started."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=ddp_rank, args=(
+        r, world, str(work / "rendezvous.ranks"), tasks, str(work)))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_ranks(procs, tasks, work, deadline):
+    """Join the ranks by ``deadline`` (time.monotonic), killing any left;
+    returns {task: [each rank's result]}."""
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * len(procs):
+        raise AssertionError(f"ddp ranks {hung} hung, exit codes {codes}")
+    return {name: [torch.load(work / f"{name}.rank{r}.pt", weights_only=True)
+                   for r in range(len(procs))] for name, _ in tasks}
+
+
+def check_ddp_f64(ranks, cfg_cls, build_model, report):
+    """12.1: two ranks on the one card over gloo against the same two
+    ranks on the CPU, float64, within TRAIN_F64_TOL_*; the ranks'
+    parameters and BN buffers equal after the update; the BN statistics
+    the mean of the ranks' one-process runs."""
+    params = dict(build_model(small_train_cfg(cfg_cls),
+                              device="cpu").named_parameters())
+    res = []
+    for rank, out in enumerate(ranks):
+        r = compare_train_runs(out["cpu"], out["cuda"], params)
+        if (r["loss_rel"] > TRAIN_F64_TOL_LOSS
+                or r["worst_tensor_rel"] > TRAIN_F64_TOL_UPDATE_TENSOR
+                or r["worst_buffer_rel"] > TRAIN_F64_TOL_BUF
+                or r["unequal"]):
+            raise AssertionError(f"two-rank float64 step, rank {rank}: card "
+                                 f"against CPU out of tolerance: {r}")
+        res.append({k: r[k] for k in (
+            "card_loss", "cpu_loss", "loss_rel", "update_l2_rel",
+            "worst_tensor", "worst_tensor_rel", "worst_buffer_rel")})
+    for dev in ("cuda", "cpu"):
+        final = [out[dev][2] for out in ranks]
+        unequal = [k for k, v in final[0].items()
+                   if not torch.equal(v, final[1][k])]
+        if unequal:
+            raise AssertionError(f"two-rank float64 step on {dev}: ranks "
+                                 f"differ in {unequal[:5]}")
+    # per-replica BN: the running statistics are linear in the batch
+    # statistics, and these do not depend on them in train mode, so after
+    # the two micro-steps (no update between their forwards) they are the
+    # mean of the ranks' one-process runs; rank 0's (a buffer broadcast)
+    # or the whole batch's (SyncBN) would differ
+    bn_rel = 0.0
+    for key, got in ranks[0]["cuda"][2].items():
+        if key.endswith(("running_mean", "running_var")):
+            want = (ranks[0]["alone"][2][key] + ranks[1]["alone"][2][key]) / 2
+            bn_rel = max(bn_rel, float((got - want).abs().max()
+                                       / want.abs().max()))
+    if bn_rel > TRAIN_F64_TOL_BUF:
+        raise AssertionError(f"two-rank BN statistics {bn_rel} from the mean "
+                             f"of the ranks' one-process runs")
+    seconds = max(r["seconds"] for r in ranks)
+    log(f"[ddp] 2 ranks on the one card over gloo, WIDTH 0.25 f64 at 128, "
+        f"batch 4 per rank, SGD, 2 micro-steps, against the same 2 ranks on "
+        f"the CPU: loss {[r['loss_rel'] for r in res]} apart (tol "
+        f"{TRAIN_F64_TOL_LOSS}), worst tensor "
+        f"{[r['worst_tensor_rel'] for r in res]} of its largest change (tol "
+        f"{TRAIN_F64_TOL_UPDATE_TENSOR}), BN buffers "
+        f"{[r['worst_buffer_rel'] for r in res]} (tol {TRAIN_F64_TOL_BUF}); "
+        f"the ranks' parameters and buffers equal; BN statistics "
+        f"{bn_rel:.3g} from the mean of the ranks' one-process runs (tol "
+        f"{TRAIN_F64_TOL_BUF}); {seconds:.1f}s")
+    report["ddp_f64"] = {"ranks": res, "bn_vs_mean_of_alone": bn_rel,
+                         "seconds": seconds}
+
+
+def phase_ddp_nccl(cfg_cls, build_model, train, work, smi, report):
+    """12.2: NCCL at world size 1, full width, 608/b8, bf16 autocast, Adam:
+    the DDP-wrapped step against the plain step from one init on one batch,
+    two updates each, and a second plain run for the run-to-run gap; then
+    both timed with CUDA events, 20 steps each in turns of 10 (plain, DDP,
+    DDP, plain)."""
+    import os
+    from yolov4_tpu_torch.parallel import dist
+    from yolov4_tpu_torch.tools.profile_train import random_batch
+    batch, size = 8, 608
+    cfg = cfg_cls.from_dict({
+        "DATA": {"BATCH_SIZE": batch},
+        "MODEL": {"COMPUTE_DTYPE": "bfloat16"},
+        "OPTIMIZER": {"TYPE": "ADAM"},
+        "LR_SCHEDULER": {"IS_WARMUP": False}})
+    images, labels = random_batch(batch, size, seed=2, device="cuda")
+
+    def build(ddp):
+        model = build_model(cfg, device="cuda", train=True,
+                            generator=torch.Generator().manual_seed(0))
+        model = model.to(memory_format=torch.channels_last)
+        step = train.make_train_step(
+            model, train.build_criterion(cfg),
+            train.build_optimizer(cfg, model),
+            train.build_lr_schedule(cfg, len_epoch=100),
+            accumulation_steps=1, compute_dtype=torch.bfloat16,
+            dist=dist.world_group() if ddp else None)
+        state = train.create_train_state(model)
+        losses = []
+        for _ in range(2):
+            state = step(state, images, labels)
+            losses.append(float(state.loss))
+        return SimpleNamespace(model=model, step=step, state=state,
+                               losses=losses)
+
+    def gap(a, b):
+        return max(float((p - q).detach().abs().max())
+                   for p, q in zip(a.model.parameters(), b.model.parameters()))
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_distributed(backend="nccl", device="cuda",
+                          init_method=f"file://{work / 'rendezvous.nccl'}",
+                          timeout_s=DDP_LIMIT_S)
+    try:
+        runs = {"plain": build(False), "ddp": build(True)}
+        again = build(False)
+        ddp_gap, rerun_gap = gap(runs["ddp"], runs["plain"]), gap(
+            again, runs["plain"])
+        losses = {k: r.losses for k, r in runs.items()}
+        del again
+        for r in runs.values():
+            for _ in range(3):
+                r.state = r.step(r.state, images, labels)
+        torch.cuda.synchronize()
+        times = {"plain": [], "ddp": []}
+        for name in ("plain", "ddp", "ddp", "plain"):
+            r = runs[name]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                r.state = r.step(r.state, images, labels)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / 10)
+    finally:
+        dist.shutdown()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(key, None)
+    del runs
+    torch.cuda.empty_cache()
+    plain_ms, ddp_ms = (float(np.mean(times[k])) for k in ("plain", "ddp"))
+    bit_equal = ddp_gap == 0.0 and losses["ddp"] == losses["plain"]
+    log(f"[ddp] NCCL world size 1, full width 608/b{batch} bf16 Adam, 2 "
+        f"updates from one init on one batch: DDP against the plain step "
+        f"{'bit-equal' if bit_equal else 'not bit-equal'}, largest parameter "
+        f"gap {ddp_gap:.3g} (a second plain run against the first: "
+        f"{rerun_gap:.3g}); losses {losses}")
+    log(f"[ddp] {smi}: step {plain_ms:.3f} ms plain, {ddp_ms:.3f} ms with "
+        f"DDP (turns of 10 steps: plain {times['plain']}, DDP "
+        f"{times['ddp']}); DDP's cost {ddp_ms - plain_ms:.3f} ms per step")
+    report["ddp_nccl"] = dict(bit_equal=bit_equal, ddp_gap=ddp_gap,
+                              rerun_gap=rerun_gap, losses=losses,
+                              plain_ms=plain_ms, ddp_ms=ddp_ms,
+                              turns_ms=times)
+
+
+def ddp_coco(work, coco_ids):
+    """Phase 12's synthetic COCO: 32 train2017 JPEGs and 17 val2017 ones
+    (odd: two ranks' shards wrap one image)."""
+    write_val2017(work, coco_ids, DDP_TRAIN_IMAGES, name="train2017", seed=8)
+    write_val2017(work, coco_ids, DDP_VAL_IMAGES, name="val2017", seed=9)
+
+
+def ddp_trainer_cfg(out_dir=""):
+    """12.3's and 12.4's configuration: full width, 608, batch 8 a rank,
+    mosaic, ACCUMULATION_STEPS 2, one epoch, PALLAS_CSP validation."""
+    return {"DATA": {"BATCH_SIZE": 8, "WORKERS": 2},
+            "MODEL": {"PALLAS_CSP": True},
+            "AUGMENTATION": {"IS_MOSAIC": True},
+            "TEST": {"BATCH_SIZE": 8},
+            "TRAIN": {"ACCUMULATION_STEPS": 2, "MAX_EPOCHS": 1,
+                      "OUTPUT_DIR": out_dir}}
+
+
+def start_cli(work):
+    """12.3: start ``torchrun --standalone --nproc_per_node 1 -m
+    yolov4_tpu_torch.train`` (NCCL) for one epoch at full width with
+    PALLAS_CSP validation, its output to cli.log."""
+    import os
+    import yaml
+    with open(work / "cli.yaml", "w") as f:
+        yaml.safe_dump(ddp_trainer_cfg(str(work / "cli")), f)
+    logf = open(work / "cli.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "yolov4_tpu_torch.train",
+         str(work), "-c", str(work / "cli.yaml"), "--print-freq", "2"],
+        cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
+        env=dict(os.environ))
+    logf.close()
+    return proc, time.time()
+
+
+def wait_cli(cli, deadline):
+    """Wait for the torchrun run by ``deadline`` (time.monotonic), killing
+    it after; returns (exit code, seconds)."""
+    proc, t0 = cli
+    try:
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        rc = None
+    return rc, time.time() - t0
+
+
+def check_ddp_cli(work, rc, seconds, report):
+    """12.3's checks: exit code 0, checkpoint.pth and metrics.jsonl
+    written, and K1 and K2 counted in its eval record. Returns (K1, K2)."""
+    import os
+    out = work / "cli"
+    tail = (work / "cli.log").read_text()[-3000:]
+    if rc != 0:
+        raise AssertionError(f"torchrun train exited {rc} after "
+                             f"{seconds:.1f}s:\n{tail}")
+    with open(out / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    evals = [r for r in rows if r["kind"] == "eval"]
+    n_val = -(-DDP_VAL_IMAGES // 8)
+    want = {"greedy_nms_mask": n_val, "fused_csp_stage": 3 * n_val}
+    if (not (out / "checkpoint.pth").exists() or len(evals) != 1
+            or evals[0]["launches"] != want):
+        raise AssertionError(f"torchrun train wrote {sorted(os.listdir(out))}"
+                             f", eval records {evals} (K1/K2 launches "
+                             f"expected {want})\n{tail}")
+    log(f"[ddp] torchrun --nproc_per_node 1 -m yolov4_tpu_torch.train "
+        f"(NCCL), full width, 1 epoch of {DDP_TRAIN_IMAGES} images, "
+        f"PALLAS_CSP val of {DDP_VAL_IMAGES}: {seconds:.1f}s, AP50 "
+        f"{evals[0]['ap50']}, launches {evals[0]['launches']}, wrote "
+        f"{sorted(os.listdir(out))}")
+    report["ddp_cli"] = {"seconds": seconds, "eval": evals[0]}
+    return want["greedy_nms_mask"], want["fused_csp_stage"]
+
+
+def check_ddp_fit(ranks, work, report):
+    """12.4's checks: Trainer.fit in two ranks on the one card over gloo,
+    full width: equal AP and parameters on both, files from rank 0 only,
+    K1 and K2 launched in each rank's validation. Returns (K1, K2)
+    launches over both ranks."""
+    per_rank = -(-DDP_VAL_IMAGES // 2)       # wrap-padded shard
+    n_val = -(-per_rank // 8)                # each rank's val batches
+    r0, r1 = ranks
+    written = sorted(p.name for p in (work / "fit_r0").iterdir())
+    bad = []
+    if (r0["ap"], r0["ap50"]) != (r1["ap"], r1["ap50"]):
+        bad.append("AP differs")
+    if r0["digest"] != r1["digest"]:
+        bad.append("parameters differ")
+    if not {"checkpoint.pth", "metrics.jsonl", "stdout.log"} <= set(written):
+        bad.append(f"rank 0 wrote {written}")
+    if (work / "fit_r1").exists():
+        bad.append("rank 1 wrote files")
+    for r in ranks:
+        if (r["k1"], r["k2"]) != (n_val, 3 * n_val):
+            bad.append(f"K1/K2 launched {r['k1']}/{r['k2']} times")
+    if bad:
+        raise AssertionError(f"two-rank Trainer.fit: {bad}")
+    seconds = max(r["seconds"] for r in ranks)
+    log(f"[ddp] Trainer.fit in 2 ranks on the one card over gloo, full "
+        f"width, batch 8 per rank, 1 epoch: {seconds:.1f}s, AP {r0['ap']} "
+        f"AP50 {r0['ap50']} on both, devices {[r['device'] for r in ranks]},"
+        f" K1/K2 per rank {[(r['k1'], r['k2']) for r in ranks]}, rank 0 "
+        f"wrote {written}, rank 1 nothing")
+    report["ddp_fit"] = {"seconds": seconds, "ap": r0["ap"],
+                         "ap50": r0["ap50"],
+                         "launches": [(r["k1"], r["k2"]) for r in ranks]}
+    return sum(r["k1"] for r in ranks), sum(r["k2"] for r in ranks)
+
+
+def phase_ddp(cfg_cls, build_model, train, coco_ids, smi, report):
+    """Phase 12: 12.2 alone (it is timed), then the torchrun run (12.3)
+    beside one group of two spawned ranks that runs 12.1 and then 12.4.
+    Returns {run: (K1, K2) launches}, each run's counts set to 0 just
+    before it and read just after, in its processes."""
+    import os
+    work = ROOT / "runs" / "chip_smoke_ddp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.time()
+    # one machine: the groups' sockets stay on the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    phase_ddp_nccl(cfg_cls, build_model, train, work, smi, report)
+    ddp_coco(work, coco_ids)
+    tasks = [("f64", {}),
+             ("fit", {"root": str(work), "raw": ddp_trainer_cfg()})]
+    deadline = time.monotonic() + DDP_LIMIT_S
+    cli = start_cli(work)
+    try:
+        ranks = join_ranks(start_ranks(tasks, work), tasks, work, deadline)
+    finally:
+        rc, cli_s = wait_cli(cli, deadline)
+    check_ddp_f64(ranks["f64"], cfg_cls, build_model, report)
+    launches = {"cli": check_ddp_cli(work, rc, cli_s, report),
+                "fit": check_ddp_fit(ranks["fit"], work, report)}
+    report["ddp_seconds"] = time.time() - t0
+    log(f"[ddp] phase 12 in {report['ddp_seconds']:.1f}s")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1518,12 +1952,7 @@ def main() -> int:
     from yolov4_tpu_torch.ops import postprocess as postprocess_mod
     from yolov4_tpu_torch.ops.csp import (fused_csp_stage_plain,
                                           kernel_widths, launch_plan)
-    from yolov4_tpu_torch.ops.loss import build_criterion
     from yolov4_tpu_torch.ops.nms import greedy_nms_mask
-    from yolov4_tpu_torch.optim import build_lr_schedule, build_optimizer
-    from yolov4_tpu_torch.parallel.train_step import (create_train_state,
-                                                      images_to_input,
-                                                      make_train_step)
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1548,10 +1977,7 @@ def main() -> int:
                          fused_csp_stage_plain, launch_plan, report)
     k2_launches = phase_val(val_mod, COCO_CLASS_IDS, nms_cuda, csp_cuda,
                             report)
-    train = SimpleNamespace(
-        build_criterion=build_criterion, build_optimizer=build_optimizer,
-        build_lr_schedule=build_lr_schedule, make_train_step=make_train_step,
-        create_train_state=create_train_state, images_to_input=images_to_input)
+    train = train_api()
     phase_train_vs_cpu(Config, build_model, train, report)
     phase_train_full(Config, build_model, train, report)
     trainer_launches = phase_trainer(Trainer, nms_cuda, csp_cuda,
@@ -1567,6 +1993,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    ddp_launches = phase_ddp(Config, build_model, train, COCO_CLASS_IDS, smi,
+                             report)
+    ddp_k1, ddp_k2 = (sum(run[i] for run in ddp_launches.values())
+                      for i in (0, 1))
     kernels = {"kernels": [{
         "name": "greedy_nms_mask",
         "route": "cuda",
@@ -1574,10 +2004,11 @@ def main() -> int:
         "replaces": "yolov4_tpu/ops/nms_pallas.py:140",
         # the detection path's batches and the Trainer's validations (the
         # three Trainer runs and their resumes; of them, the runs with
-        # AUGMENTATION.DEVICE)
-        "launches": launches + trainer_k1,
+        # AUGMENTATION.DEVICE), and phase 12's data-parallel validations
+        "launches": launches + trainer_k1 + ddp_k1,
         "launches_in_trainer": trainer_k1,
         "launches_in_device_aug_trainer": device_k1,
+        "launches_in_ddp": ddp_k1,
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1598,10 +2029,11 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/csp.cu",
         "replaces": "yolov4_tpu/ops/csp_pallas.py:344",
-        # val's batches and the Trainer's validations
-        "launches": k2_launches + trainer_k2,
+        # val's batches, the Trainer's validations and phase 12's
+        "launches": k2_launches + trainer_k2 + ddp_k2,
         "launches_in_trainer": trainer_k2,
         "launches_in_device_aug_trainer": device_k2,
+        "launches_in_ddp": ddp_k2,
         "max_abs_err": max(r["max_abs_err"] for r in stages),
         "ms": sum(r["ms"] for r in stages),
         "device_ms": sum(r["device_ms"] for r in stages),

@@ -36,7 +36,7 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "ops.cuda_build", "eval.cocoeval", "data.coco",
                  "data.pipeline", "engine.evaluator", "utils.logging",
                  "utils.metrics", "val", "ops.loss", "optim.optimizers",
-                 "optim.schedules", "parallel.train_step",
+                 "optim.schedules", "parallel.train_step", "parallel.dist",
                  "utils.checkpoint", "utils.profiling", "engine.trainer",
                  "train"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]

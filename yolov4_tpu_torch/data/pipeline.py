@@ -1,6 +1,6 @@
 """Host-side input pipeline: the port's copy of the JAX package's
-data/pipeline.py for one process (replacing torch DataLoader +
-DistributedSampler, reference yolo/data/build.py:19-56).
+data/pipeline.py (replacing torch DataLoader + DistributedSampler,
+reference yolo/data/build.py:19-56).
 
 Batches are NHWC numpy arrays (with AUGMENTATION.DEVICE, uint8 mosaic
 canvases [B, 4, S, S, 3]) with the stacked per-sample target arrays and
@@ -9,7 +9,9 @@ per sample with a bounded run-ahead of ``prefetch_batches`` batches, and
 every random draw is seeded from the sample's position (seed, epoch,
 batch index, slot), never from a worker's identity: any worker count
 gives the same stream, and so does the JAX package's loader for the same
-seed. Sharding across processes waits for the data-parallel slice.
+seed. Under data parallelism each process (rank) loads its own shard: the
+epoch's order is wrap-padded to a multiple of the process count and
+strided, and the per-batch seeds carry the process index.
 """
 
 from __future__ import annotations
@@ -56,13 +58,16 @@ class DataLoader:
     Yields (images [B, S, S, 3] NHWC, target dict). With ``drop_last`` a
     short last batch is dropped; otherwise, with ``pad_last``, it is
     padded to the full size by repeating its first sample, and
-    'batch_mask' marks the real rows. The port's default is the eval
-    loader (in order, no workers); the JAX package's shuffles.
+    'batch_mask' marks the real rows. B is the per-process batch: process
+    ``process_index`` of ``process_count`` loads its shard of the epoch
+    (``_local_indices``). The port's default is the eval loader (in order,
+    no workers); the JAX package's shuffles.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 0, seed: int = 0, drop_last: bool = False,
-                 pad_last: bool = True, start_method: str = "spawn",
+                 pad_last: bool = True, process_index: int = 0,
+                 process_count: int = 1, start_method: str = "spawn",
                  prefetch_batches: int = 3):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -73,6 +78,8 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.pad_last = pad_last
+        self.process_index = process_index
+        self.process_count = process_count
         self.start_method = start_method
         self.prefetch_batches = max(1, prefetch_batches)
         self.epoch = 0
@@ -103,25 +110,34 @@ class DataLoader:
         """Reshuffle per epoch (DistributedSampler.set_epoch)."""
         self.epoch = epoch
 
-    def _indices(self) -> np.ndarray:
+    def _local_indices(self) -> np.ndarray:
+        """This process's dataset indices of the epoch: the (shuffled)
+        order, wrap-padded to a multiple of the process count, then every
+        process_count-th from process_index. The padded copies are scored
+        once (engine/evaluator.py::_dedup_wrap_padding)."""
         n = len(self.dataset)
+        order = np.arange(n)
         if self.shuffle:
-            return np.random.default_rng((self.seed, self.epoch)).permutation(n)
-        return np.arange(n)
+            order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        if self.process_count > 1:
+            total = -(-n // self.process_count) * self.process_count
+            order = np.concatenate([order, order[: total - n]])
+            order = order[self.process_index::self.process_count]
+        return order
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._local_indices())
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
     def _batches(self):
-        order = self._indices()
+        order = self._local_indices()
         start, self.start_batch = self.start_batch, 0  # consume one-shot
         for i in range(start, len(self)):
             chunk = order[i * self.batch_size:(i + 1) * self.batch_size]
-            # the JAX package's per-batch seed, process index 0
-            seed = hash((self.seed, self.epoch, i, 0)) & 0x7FFFFFFF
+            seed = hash((self.seed, self.epoch, i,
+                         self.process_index)) & 0x7FFFFFFF
             if self.size_schedule is not None:
                 size = self.size_schedule(self.epoch, i)
             else:
@@ -176,8 +192,11 @@ class DataLoader:
             yield self._finalize(samples, len(chunk))
 
 
-def build_val_loader(cfg: Dict, data_root: str, seed: int = 0) -> DataLoader:
-    """val2017 in order, uint8 images (normalized on the device)."""
+def build_val_loader(cfg: Dict, data_root: str, seed: int = 0,
+                     process_index: int = 0,
+                     process_count: int = 1) -> DataLoader:
+    """val2017 in order, uint8 images (normalized on the device), this
+    process's shard of it."""
     from yolov4_tpu_torch.data.coco import COCODataset
     from yolov4_tpu_torch.data.transforms import Transform
 
@@ -187,13 +206,16 @@ def build_val_loader(cfg: Dict, data_root: str, seed: int = 0) -> DataLoader:
         num_classes=cfg["MODEL"]["N_CLASSES"], name="val2017")
     return DataLoader(dataset, batch_size=cfg["TEST"].get("BATCH_SIZE", 8),
                       shuffle=False, num_workers=cfg["DATA"]["WORKERS"],
-                      seed=seed)
+                      seed=seed, process_index=process_index,
+                      process_count=process_count)
 
 
-def build_data(cfg: Dict, data_root: str, seed: int = 0):
-    """Train and val loaders (reference data/build.py:19): train2017 with
-    the train transform, shuffled, short last batch dropped; and
-    build_val_loader's. With AUGMENTATION.DEVICE the train transform is
+def build_data(cfg: Dict, data_root: str, seed: int = 0,
+               process_index: int = 0, process_count: int = 1):
+    """Train and val loaders (reference data/build.py:19) of process
+    ``process_index`` of ``process_count``: its shard of train2017 with the
+    train transform, shuffled, short last batch dropped; and
+    build_val_loader's. DATA.BATCH_SIZE is per process. With AUGMENTATION.DEVICE the train transform is
     CanvasTransform: the host decodes and resizes the mosaic's members and
     the train step augments them on the device (data/device_aug.py)."""
     from yolov4_tpu_torch.data.coco import COCODataset
@@ -212,5 +234,7 @@ def build_data(cfg: Dict, data_root: str, seed: int = 0):
         is_train=True)
     train_loader = DataLoader(
         train_dataset, batch_size=cfg["DATA"]["BATCH_SIZE"], shuffle=True,
-        num_workers=cfg["DATA"]["WORKERS"], seed=seed, drop_last=True)
-    return train_loader, build_val_loader(cfg, data_root, seed)
+        num_workers=cfg["DATA"]["WORKERS"], seed=seed, drop_last=True,
+        process_index=process_index, process_count=process_count)
+    return train_loader, build_val_loader(cfg, data_root, seed,
+                                          process_index, process_count)

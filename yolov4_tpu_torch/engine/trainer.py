@@ -1,5 +1,13 @@
 """Training engine (reference main_amp.py:61-235 + engine/build.py:41-108):
-the port's copy of the JAX package's engine/trainer.py on one device.
+the port's copy of the JAX package's engine/trainer.py.
+
+One process per GPU: under torchrun (parallel/dist.py) each rank trains
+on ``cuda:{LOCAL_RANK}`` with its shard of the loaders, DATA.BATCH_SIZE
+images a step, and the train step averages gradients, BN statistics and
+the loss over the ranks; every rank validates its shard of val2017 and
+gets the stats of the whole set. Only rank 0 writes metrics.jsonl,
+checkpoints and the profiler trace; every rank reads the same checkpoint
+to resume.
 
 Epoch loop: host loading in worker processes -> an upload of each batch
 (TRAIN.TRANSFER_DTYPE on the host, pinned; with AUGMENTATION.DEVICE the
@@ -33,6 +41,7 @@ from yolov4_tpu_torch.models.yolov4 import DTYPES
 from yolov4_tpu_torch.ops.loss import build_criterion
 from yolov4_tpu_torch.optim import build_lr_schedule, build_optimizer
 from yolov4_tpu_torch.parallel import create_train_state, make_train_step
+from yolov4_tpu_torch.parallel import dist as dist_lib
 from yolov4_tpu_torch.utils import checkpoint as ckpt_lib
 from yolov4_tpu_torch.utils.logging import get_logger
 from yolov4_tpu_torch.utils.metrics import AverageMeter, MetricsJSONL
@@ -41,30 +50,47 @@ from yolov4_tpu_torch.utils.profiling import StepProfiler
 logger = get_logger(__name__)
 
 
+def _kernel_launches() -> Dict[str, int]:
+    """The launch counts of the NMS kernel (K1) and the fused CSP stage
+    kernel (K2) in this process so far."""
+    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
+    return {"greedy_nms_mask": nms_cuda.greedy_nms_mask_cuda.launches,
+            "fused_csp_stage": csp_cuda.fused_csp_stage_cuda.launches}
+
+
 class Trainer:
     """``Trainer(cfg, data_root).fit()`` trains for TRAIN.MAX_EPOCHS on
-    ``device`` (None means CUDA; a missing card is an error) and returns
-    (best AP[.50:.95], best AP50)."""
+    ``device`` (None means CUDA; a missing card is an error; a bare
+    ``cuda`` is ``cuda:{LOCAL_RANK}`` in a process group) and returns
+    (best AP[.50:.95], best AP50), the same on every rank."""
 
     def __init__(self, cfg: Dict, data_root: str, resume: Optional[str] = None,
                  print_freq: int = 10, seed: int = 0, profile_steps: int = 0,
                  evaluate_only: bool = False, device=None,
                  channels_last: bool = True):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = dist_lib.device_for_rank(resolve_device(device))
+        self.rank, self.world = dist_lib.rank(), dist_lib.world_size()
+        self.is_primary = self.rank == 0
         self.print_freq = print_freq
         self.output_dir = cfg["TRAIN"]["OUTPUT_DIR"]
-        self.profiler = StepProfiler(os.path.join(self.output_dir, "profile"),
-                                     start=10, count=profile_steps)
-        self.metrics_log = MetricsJSONL(os.path.join(self.output_dir,
-                                                     "metrics.jsonl"))
+        self.profiler = StepProfiler(
+            os.path.join(self.output_dir, "profile"), start=10,
+            count=profile_steps if self.is_primary else 0)
+        self.metrics_log = MetricsJSONL(
+            os.path.join(self.output_dir, "metrics.jsonl"),
+            enabled=self.is_primary)
+        logger.info(f"{self.world} process(es), this one rank {self.rank} "
+                    f"on {self.device}")
 
+        shard = {"process_index": self.rank, "process_count": self.world}
         if evaluate_only:
             self.train_loader = None
-            self.val_loader = build_val_loader(cfg, data_root, seed=seed)
+            self.val_loader = build_val_loader(cfg, data_root, seed=seed,
+                                               **shard)
         else:
-            self.train_loader, self.val_loader = build_data(cfg, data_root,
-                                                            seed=seed)
+            self.train_loader, self.val_loader = build_data(
+                cfg, data_root, seed=seed, **shard)
 
         self.model = build_model(cfg, device=self.device, train=True,
                                  generator=torch.Generator().manual_seed(seed))
@@ -80,6 +106,8 @@ class Trainer:
 
         self.criterion = build_criterion(cfg)
         self.optimizer = build_optimizer(cfg, self.model)
+        # this rank's batches per epoch (the JAX package's per-process
+        # batch count)
         len_epoch = len(self.train_loader) if self.train_loader else 1
         self.lr_schedule = build_lr_schedule(cfg, len_epoch=len_epoch)
         # opt-in parameter EMA (TRAIN.EMA_DECAY > 0): evaluation and the
@@ -106,7 +134,7 @@ class Trainer:
                 skip_nonfinite=bool(cfg["TRAIN"].get("SKIP_NONFINITE_UPDATES",
                                                      False)),
                 ema_decay=self.ema_decay, device_aug=self.device_aug,
-                aug_seed=seed)
+                aug_seed=seed, dist=dist_lib.world_group())
 
         self.start_epoch = cfg["TRAIN"]["START_EPOCH"]
         self.best_ap50 = 0.0
@@ -117,6 +145,8 @@ class Trainer:
         self.ckpt_every = int(cfg["TRAIN"].get("CHECKPOINT_EVERY_STEPS", 0))
         self._resume_skip = 0
         self._host_step = 0
+        # K1/K2 launches of the last evaluate()
+        self.eval_launches: Dict[str, int] = {}
         if resume:
             self._resume(resume)
 
@@ -152,6 +182,7 @@ class Trainer:
         return bundle
 
     def _resume(self, path: str) -> None:
+        """Every rank reads the same checkpoint."""
         logger.info(f"resuming from {path}")
         raw = ckpt_lib.load_checkpoint_raw(path)
         if "variables" not in raw:
@@ -215,7 +246,7 @@ class Trainer:
         self.train_loader.start_batch = skip
         n_batches = len(self.train_loader)
         batch_time = AverageMeter()
-        batch = cfg["DATA"]["BATCH_SIZE"]
+        batch = cfg["DATA"]["BATCH_SIZE"] * self.world   # over the ranks
         loss_val = float("nan")
         if self.ms_sizes:
             # the loader evaluates the same schedule per batch
@@ -229,7 +260,7 @@ class Trainer:
             cur_size = imgs.shape[-2]
             images, labels = self._put_batch(imgs, target[label_key])
             self.state = self.train_step(self.state, images, labels)
-            n_images += imgs.shape[0]
+            n_images += imgs.shape[0] * self.world
             self._host_step += 1
             self.profiler.on_step(self._host_step)
             if self.ckpt_every and (i + 1) % self.ckpt_every == 0 \
@@ -265,29 +296,44 @@ class Trainer:
     def _save_mid_epoch(self, epoch: int, batch_index: int) -> None:
         """Preemption checkpoint (TRAIN.CHECKPOINT_EVERY_STEPS): the full
         state rolls into checkpoint.pth; fetching it waits for the device,
-        so pick a cadence of hundreds of steps on real configs."""
-        meta = {"epoch": epoch, "batch_index": batch_index,
-                "mid_epoch": True, "step": self.state.step,
-                "best_ap50": self.best_ap50,
-                "best_ap50_95": self.best_ap50_95}
-        ckpt_lib.save_checkpoint(self._bundle(meta), is_best=False,
-                                 output_dir=self.output_dir, meta=meta)
-        logger.info(f"mid-epoch checkpoint (epoch {epoch + 1} "
-                    f"batch {batch_index}, step {meta['step']})")
+        so pick a cadence of hundreds of steps on real configs. Rank 0
+        writes; the others wait for it."""
+        if self.is_primary:
+            meta = {"epoch": epoch, "batch_index": batch_index,
+                    "mid_epoch": True, "step": self.state.step,
+                    "best_ap50": self.best_ap50,
+                    "best_ap50_95": self.best_ap50_95}
+            ckpt_lib.save_checkpoint(self._bundle(meta), is_best=False,
+                                     output_dir=self.output_dir, meta=meta)
+            logger.info(f"mid-epoch checkpoint (epoch {epoch + 1} "
+                        f"batch {batch_index}, step {meta['step']})")
+        dist_lib.lockstep("mid_epoch_saved")
 
     def evaluate(self):
         """COCO AP of the EMA weights when enabled (what a deployment would
-        serve), else of the training weights, through the Predictor."""
+        serve), else of the training weights, through the Predictor; each
+        rank on its shard of val2017. Counts the K1/K2 launches it made
+        into ``eval_launches``."""
         self.predictor.model.load_state_dict(
             self._named_state(self.state.ema_params is not None))
-        return validate(self.val_loader, self.predictor,
-                        conf_threshold=self.cfg["TEST"]["CONFTHRE"],
-                        nms_threshold=self.cfg["TEST"]["NMSTHRE"])
+        before = _kernel_launches()
+        stats = validate(self.val_loader, self.predictor,
+                         conf_threshold=self.cfg["TEST"]["CONFTHRE"],
+                         nms_threshold=self.cfg["TEST"]["NMSTHRE"])
+        self.eval_launches = {k: v - before[k]
+                              for k, v in _kernel_launches().items()}
+        return stats
 
     def save(self, epoch: int, ap50: float, ap50_95: float) -> None:
+        """Best-AP tracking on every rank (validate gave each the same
+        stats), so fit returns the same on all; rank 0 writes the files
+        and the others wait for it."""
         is_best = ap50 > self.best_ap50
         self.best_ap50 = max(ap50, self.best_ap50)
         self.best_ap50_95 = max(ap50_95, self.best_ap50_95)
+        if not self.is_primary:
+            dist_lib.lockstep("saved")
+            return
         meta = {"epoch": epoch, "step": self.state.step,
                 "ap50": ap50, "ap50_95": ap50_95,
                 "best_ap50": self.best_ap50,
@@ -295,6 +341,7 @@ class Trainer:
         ckpt_lib.save_checkpoint(self._bundle(meta), is_best,
                                  output_dir=self.output_dir, meta=meta)
         logger.info(f"checkpoint saved (epoch {epoch}, best={is_best})")
+        dist_lib.lockstep("saved")
 
     def close(self) -> None:
         """Stop the loaders' worker processes and any open trace."""
@@ -309,6 +356,7 @@ class Trainer:
                 ap, ap50 = self.evaluate()
                 logger.info(f"AP[.50:.95] = {ap:.5f}  AP50 = {ap50:.5f}")
                 return ap, ap50
+            dist_lib.lockstep("train_start")
             for epoch in range(self.start_epoch,
                                self.cfg["TRAIN"]["MAX_EPOCHS"]):
                 t0 = time.time()
@@ -321,7 +369,8 @@ class Trainer:
                             f"(best AP50 {self.best_ap50:.5f})")
                 self.metrics_log.write({
                     "kind": "eval", "epoch": epoch + 1, "ap": ap,
-                    "ap50": ap50, "best_ap50": self.best_ap50})
+                    "ap50": ap50, "best_ap50": self.best_ap50,
+                    "launches": self.eval_launches})
             return self.best_ap50_95, self.best_ap50
         finally:
             self.close()

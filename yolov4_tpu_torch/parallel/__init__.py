@@ -1,4 +1,4 @@
-"""The train step (one device)."""
+"""The train step, on one device or data-parallel (dist.py)."""
 
 from yolov4_tpu_torch.parallel.train_step import (TrainState,
                                                   create_train_state,

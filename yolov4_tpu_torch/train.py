@@ -7,11 +7,21 @@ Usage:
         [--profile N] [--opt-level O0|O1|O2|O3] [--sync_bn] \
         [--deterministic] [--seed 0] [--device cuda]
 
+    torchrun --nproc_per_node N -m yolov4_tpu_torch.train COCO -c CFG ...
+    torchrun --nnodes M --node_rank R --nproc_per_node N \
+        -m yolov4_tpu_torch.train COCO -c CFG --coordinator HOST:PORT ...
+
 COCO is a directory with ``annotations/instances_{train,val}2017.json``
 and ``images/{train,val}2017/{id:012}.jpg``. Runs on CUDA unless
 ``--device`` names another device; a missing card is an error. Against
 the reference (main_amp.py:34-58):
-  * one process on one device (data parallelism is not ported yet);
+  * data parallel as the reference (one process per GPU, NCCL): under
+    torchrun rank r trains on cuda:{LOCAL_RANK} with DATA.BATCH_SIZE
+    images a step from its shard of the data, gradients, BN statistics
+    and the loss averaged over the ranks (per-replica BN); without
+    torchrun, one process on one device. ``--coordinator`` names the
+    rendezvous of a multi-node run (MASTER_ADDR:MASTER_PORT). Only rank 0
+    logs and writes files;
   * --opt-level maps apex AMP levels onto the compute dtype: O0 ->
     float32, O1/O2/O3 -> bfloat16 under torch.autocast with float32
     weights (bfloat16 needs no loss scaling);
@@ -56,25 +66,45 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              "(disable with --no-channels-last)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default cuda; a missing card "
-                             "is an error)")
+                        help="torch device (default cuda: cuda:LOCAL_RANK "
+                             "under torchrun; a missing card is an error)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        metavar="HOST:PORT",
+                        help="rendezvous address of a multi-node run "
+                             "(sets MASTER_ADDR / MASTER_PORT)")
     return parser.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
 
-    from yolov4_tpu_torch.config import load_config
-    from yolov4_tpu_torch.engine.predictor import resolve_device
-    from yolov4_tpu_torch.engine.trainer import Trainer
-    from yolov4_tpu_torch.utils.logging import get_logger, setup_logging
+    import torch.distributed as tdist
 
-    setup_logging()
-    logger = get_logger(__name__)
+    from yolov4_tpu_torch.engine.predictor import resolve_device
+    from yolov4_tpu_torch.parallel import dist as dist_lib
+
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
+    # a group this call starts, it also ends
+    joined = (not tdist.is_initialized()
+              and dist_lib.init_distributed(args.coordinator, device=device))
+    try:
+        return _train(args, dist_lib.device_for_rank(device))
+    finally:
+        if joined:
+            dist_lib.shutdown()
+
+
+def _train(args, device):
+    from yolov4_tpu_torch.config import load_config
+    from yolov4_tpu_torch.engine.trainer import Trainer
+    from yolov4_tpu_torch.parallel import dist as dist_lib
+    from yolov4_tpu_torch.utils.logging import get_logger, setup_logging
+
+    setup_logging(process_index=dist_lib.rank())
+    logger = get_logger(__name__)
     cfg = load_config(args.cfg)
     if args.opt_level is not None:
         cfg["MODEL"]["COMPUTE_DTYPE"] = (
@@ -97,7 +127,8 @@ def main(argv: Optional[Sequence[str]] = None):
         torch.backends.cudnn.benchmark = False
         logger.info(f"deterministic mode: base seed {args.seed}")
     # again with the output directory, now that the config names it
-    setup_logging(output_dir=cfg["TRAIN"]["OUTPUT_DIR"])
+    setup_logging(process_index=dist_lib.rank(),
+                  output_dir=cfg["TRAIN"]["OUTPUT_DIR"])
     logger.info(f"config: {args.cfg}, compute {cfg['MODEL']['COMPUTE_DTYPE']}, "
                 f"device {device}")
 

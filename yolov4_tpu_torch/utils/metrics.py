@@ -28,14 +28,19 @@ class MetricsJSONL:
     """Append-only JSONL scalar sink (the JAX package's utils/metrics.py):
     one line per record, {"ts": unix_seconds, **record}, flushed at once so
     that a crash loses nothing. The stdout log stays; this is its
-    machine-readable copy."""
+    machine-readable copy. Disabled (every rank but 0), it writes nothing
+    and creates no directory."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, enabled: bool = True):
         import os
         self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def write(self, record: dict) -> None:
+        if not self.enabled:
+            return
         import json
         import time
         with open(self.path, "a") as f:
