@@ -66,7 +66,9 @@ line:
                off; loss, the parameters' change as a whole and per tensor,
                and BN buffers within TRAIN_TOL_*), then in float64 at init
                seeds 1 and 5 (TRAIN_F64_TOL_*: each tensor's change within
-               1e-9 of its largest, BN buffers within 1e-10).
+               1e-9 of its largest, BN buffers within 1e-10), each against
+               a CPU run that a second run repeats bit for bit (a third
+               when they differ, REFERENCE_RUNS).
  10. train   — full width, 608x608, batch 8, bfloat16 autocast over
      full      float32 weights, Adam: 3 warm steps, then 20 timed with
                CUDA events (ms per step, img/s, peak memory, the share of
@@ -94,9 +96,9 @@ line:
                card over gloo (spawned, LOCAL_RANK 0 each), float64, WIDTH
                0.25 at 128, batch 4 per rank, SGD, ACCUMULATION_STEPS 2,
                two micro-steps, against the same two ranks on the CPU
-               (TRAIN_F64_TOL_*), the ranks' parameters equal, the BN
-               statistics the mean of each rank's one-process run (per
-               replica, averaged); NCCL at world
+               (TRAIN_F64_TOL_*; REFERENCE_RUNS as in 9), the ranks'
+               parameters equal, the BN statistics the mean of each
+               rank's one-process run (per replica, averaged); NCCL at world
                size 1, full width 608/b8 bf16 Adam: the DDP-wrapped step
                against the plain step from one init (two updates; the
                largest parameter gap, beside a second plain run's), both
@@ -108,6 +110,27 @@ line:
                equal AP and parameters, files from rank 0 only, K1 and K2
                in each rank's validation. NCCL above one rank needs more
                than one card and is not run.
+
+ 13. serve   — the serving path (run after phase 8): K2 at the three
+               416/b16 stage shapes of the second bucket against its plain
+               version (float32 and bfloat16, phase 6's tolerances), the
+               bfloat16 calls timed; a ServingRuntime with buckets 608 and
+               416 at batch 16 sharing one full-width bf16 PALLAS_CSP
+               model (seed-0 init, BN re-drawn as in phase 7) behind the
+               HTTP server on 127.0.0.1 (port 0): 480 requests from 48
+               client threads, JPEGs to /v1/detect and raw frames to
+               /v1/detect_raw alternating, both buckets, per-request conf
+               none / 0.3 / 0.5; every response equal, in its detections,
+               to the rows the direct Predictor gives for the same canvas
+               in the same batch (a row can depend on its batchmates
+               through the NMS's class-offset span), K1 once, K2 3 times
+               and its conv kernels 14 times per batch served; requests/s,
+               e2e and queue latency p50/p99, mean batch fill; the 608
+               bucket exported (utils/export.py), reloaded bit-identical
+               to the live predictor, and served from the artifact
+               (ServingRuntime.from_artifacts): the same checks and
+               counts; ``python -m yolov4_tpu_torch.detect`` on a 20-frame
+               cv2-written clip.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -175,6 +198,15 @@ TRAIN_F64_SEEDS = (1, 5)
 TRAIN_F64_TOL_LOSS = 1e-12
 TRAIN_F64_TOL_UPDATE_TENSOR = 1e-9
 TRAIN_F64_TOL_BUF = 1e-10
+# The CPU reference of each float64 gate is run until two of its runs agree
+# bit for bit, at most this many times. The CPU run is deterministic (the
+# same bits on every repeat, under load too), so a run that differs from
+# the others is a fault of the host, not a reference: one such
+# run on an H100 machine's host read its first micro-step's loss 687 ulps
+# off and a BN bias's change 5.8e-9 off, while the card's numbers equalled
+# every other run's to the bit. The card runs once and is held to the
+# agreed reference with the tolerances above.
+REFERENCE_RUNS = 3
 # The fused bfloat16 forward against the default one, decoded: both round to
 # bfloat16 at different points (the default path rounds conv outputs, BN and
 # each Mish step; K2 keeps them in float32), so each is held against a
@@ -1038,6 +1070,37 @@ def train_two_steps(cfg, build_model, train, device, seed, dtype,
                           model.state_dict().items()}
 
 
+def same_train_run(a, b) -> bool:
+    """Two train_two_steps results equal bit for bit."""
+    return a[0] == b[0] and all(
+        all(torch.equal(v, y[k]) for k, v in x.items())
+        for x, y in ((a[1], b[1]), (a[2], b[2])))
+
+
+def agreed_cpu_run(run, group=None):
+    """The CPU reference ``run()`` of a float64 gate, run until two of its
+    runs agree bit for bit (REFERENCE_RUNS at most): (that result, the
+    number of runs). Over the process group ``group`` the ranks decide
+    together, so that each makes as many runs (and collectives) as the
+    others. Raises when no two runs agree."""
+    import torch.distributed as tdist
+    runs = [run(), run()]
+    while True:
+        agreed = next((a for i, a in enumerate(runs) for b in runs[i + 1:]
+                       if same_train_run(a, b)), None)
+        ok = agreed is not None
+        if group is not None:
+            flag = torch.tensor([int(ok)])
+            tdist.all_reduce(flag, op=tdist.ReduceOp.MIN, group=group)
+            ok = bool(flag.item())
+        if ok:
+            return agreed, len(runs)
+        if len(runs) == REFERENCE_RUNS:
+            raise AssertionError(f"the CPU reference gave {len(runs)} "
+                                 f"different results: {[r[0] for r in runs]}")
+        runs.append(run())
+
+
 def compare_train_runs(cpu, gpu, param_names):
     """The card's run against the CPU's: the losses' largest relative gap;
     the parameters' change as the L2 norm of the difference over the L2
@@ -1077,7 +1140,7 @@ def phase_train_vs_cpu(cfg_cls, build_model, train, report):
     """The train step at WIDTH 0.25 on the card (TF32 off) against the
     CPU, SGD, ACCUMULATION_STEPS 2, two micro-steps from one init seed: in
     float32 at TRAIN_SEED (TRAIN_TOL_*), then in float64 at init seeds 1
-    and 5 (TRAIN_F64_TOL_*)."""
+    and 5 (TRAIN_F64_TOL_*, against agreed_cpu_run)."""
     cfg = small_train_cfg(cfg_cls)
     params = dict(build_model(cfg, device="cpu").named_parameters())
     with tf32_off():
@@ -1111,11 +1174,13 @@ def phase_train_vs_cpu(cfg_cls, build_model, train, report):
 
     f64 = {}
     for seed in TRAIN_F64_SEEDS:
-        runs = {dev: train_two_steps(cfg, build_model, train, dev, seed,
-                                     torch.float64)
-                for dev in ("cpu", "cuda")}
-        res = compare_train_runs(runs["cpu"], runs["cuda"], params)
+        cpu, cpu_runs = agreed_cpu_run(lambda: train_two_steps(
+            cfg, build_model, train, "cpu", seed, torch.float64))
+        res = compare_train_runs(cpu, train_two_steps(
+            cfg, build_model, train, "cuda", seed, torch.float64), params)
+        res["cpu_runs"] = cpu_runs
         log(f"[train] WIDTH 0.25 f64 at 128, init seed {seed}: card vs CPU "
+            f"(its runs until two agree: {cpu_runs}) "
             f"loss {res['card_loss']} vs {res['cpu_loss']} "
             f"({res['loss_rel']:.3g} apart, tol {TRAIN_F64_TOL_LOSS}); "
             f"parameter change {res['update_l2_rel']:.3g} apart in L2, "
@@ -1134,7 +1199,7 @@ def phase_train_vs_cpu(cfg_cls, build_model, train, report):
         f64[seed] = {k: res[k] for k in (
             "card_loss", "cpu_loss", "loss_rel", "update_l2_rel",
             "worst_tensor", "worst_tensor_rel", "worst_buffer_abs",
-            "worst_buffer_rel")}
+            "worst_buffer_rel", "cpu_runs")}
     report["train_vs_cpu_f64"] = f64
 
 
@@ -1548,16 +1613,21 @@ def small_train_cfg(cfg_cls):
 
 def ddp_f64_task(rank):
     """Phase 12.1 on one rank: two float64 micro-steps over the group on
-    the card, then on the CPU, each on this rank's own batches; and the
-    same two on the card without the group ("alone")."""
+    the card, then on the CPU (agreed_cpu_run), each on this rank's own
+    batches; and the same two on the card without the group ("alone")."""
     from yolov4_tpu_torch.config import Config
     from yolov4_tpu_torch.models import build_model
     from yolov4_tpu_torch.parallel import dist
     cfg, train = small_train_cfg(Config), train_api()
-    out = {dev: train_two_steps(cfg, build_model, train, dev, TRAIN_SEED,
+    out = {"cuda": train_two_steps(cfg, build_model, train, "cuda",
+                                   TRAIN_SEED, torch.float64,
+                                   batch_seed=11 + rank,
+                                   dist=dist.world_group())}
+    out["cpu"], out["cpu_runs"] = agreed_cpu_run(
+        lambda: train_two_steps(cfg, build_model, train, "cpu", TRAIN_SEED,
                                 torch.float64, batch_seed=11 + rank,
-                                dist=dist.world_group())
-           for dev in ("cuda", "cpu")}
+                                dist=dist.world_group()),
+        group=dist.world_group())
     out["alone"] = train_two_steps(cfg, build_model, train, "cuda",
                                    TRAIN_SEED, torch.float64,
                                    batch_seed=11 + rank)
@@ -1668,6 +1738,7 @@ def check_ddp_f64(ranks, cfg_cls, build_model, report):
         res.append({k: r[k] for k in (
             "card_loss", "cpu_loss", "loss_rel", "update_l2_rel",
             "worst_tensor", "worst_tensor_rel", "worst_buffer_rel")})
+        res[-1]["cpu_runs"] = out["cpu_runs"]
     for dev in ("cuda", "cpu"):
         final = [out[dev][2] for out in ranks]
         unequal = [k for k, v in final[0].items()
@@ -1692,7 +1763,9 @@ def check_ddp_f64(ranks, cfg_cls, build_model, report):
     seconds = max(r["seconds"] for r in ranks)
     log(f"[ddp] 2 ranks on the one card over gloo, WIDTH 0.25 f64 at 128, "
         f"batch 4 per rank, SGD, 2 micro-steps, against the same 2 ranks on "
-        f"the CPU: loss {[r['loss_rel'] for r in res]} apart (tol "
+        f"the CPU (its runs until two agree: "
+        f"{[r['cpu_runs'] for r in res]}): loss "
+        f"{[r['loss_rel'] for r in res]} apart (tol "
         f"{TRAIN_F64_TOL_LOSS}), worst tensor "
         f"{[r['worst_tensor_rel'] for r in res]} of its largest change (tol "
         f"{TRAIN_F64_TOL_UPDATE_TENSOR}), BN buffers "
@@ -1936,6 +2009,402 @@ def phase_ddp(cfg_cls, build_model, train, coco_ids, smi, report):
     return launches
 
 
+SERVE_SHAPES = ((16, 208, 208, 64, 0), (16, 104, 104, 128, 2),
+                (16, 52, 52, 256, 8))      # K2's stages at 416/b16
+SERVE_SIZES = (608, 416)
+SERVE_CLIENTS = 48         # client threads, each with one request in flight
+SERVE_REQUESTS = 480       # live runtime; the artifact runtime serves
+SERVE_ARTIFACT_REQUESTS = 96   # this many from the exported 608 bucket
+SERVE_CONFS = (None, 0.3, 0.5)  # per-request post-NMS filters (bucket 0.25)
+VIDEO_FRAMES = 20
+
+
+def phase_k2_416(csp_cuda, plain, report):
+    """K2 at the three 416/b16 stage shapes of the serving runtime's second
+    bucket (new to K2) against its plain version, float32 and bfloat16,
+    with phase 6's tolerances; the bfloat16 calls timed."""
+    from yolov4_tpu_torch.ops.csp import pack_weights
+    rows = []
+    with tf32_off(), torch.inference_mode():
+        for i, (b, h, w, c, nb) in enumerate(SERVE_SHAPES):
+            x, folded = k2_case(100 + i, b, h, w, c, nb)
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                packed = [t.to(x.device) for t in pack_weights(folded, nb, dt)]
+                res = check_k2(csp_cuda, plain, xd, folded, nb, packed,
+                               f"416 {str(dt)[6:]} {(b, h, w, c)} nb={nb}")
+                row = dict(shape=[b, h, w, c], num_blocks=nb,
+                           dtype=str(dt)[6:], **res)
+                if dt == torch.bfloat16:
+                    row["ms"] = cuda_ms(lambda: csp_cuda.fused_csp_stage_cuda(
+                        xd, folded, nb, packed))
+                    row["device_ms"] = cuda_ms(
+                        lambda: csp_cuda.fused_csp_stage_cuda(
+                            xd, folded, nb, packed), queue_ahead=True)
+                    row["bound_ms"], row["bound_by"] = k2_bound(xd, folded)
+                    log(f"[serve] K2 416 stage {(b, h, w, c)} nb={nb}: "
+                        f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
+                        f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
+                rows.append(row)
+            del x, folded
+            torch.cuda.empty_cache()
+    report["serve_k2_416"] = rows
+
+
+def serve_images(seed, n):
+    """n synthetic BGR images of mixed sizes with filled rectangles."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    shapes = [(480, 640), (720, 1280), (375, 500), (608, 608), (416, 416)]
+    out = []
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([(xx * 255 // w), (yy * 255 // h),
+                        rng.integers(0, 256, (h, w))], -1).astype(np.uint8)
+        for _ in range(3):
+            x0, y0 = int(rng.integers(0, w // 2)), int(rng.integers(0, h // 2))
+            color = tuple(int(v) for v in rng.integers(0, 256, 3))
+            cv2.rectangle(img, (x0, y0), (x0 + w // 3, y0 + h // 3), color,
+                          -1)
+        out.append(img)
+    return out
+
+
+def serve_requests(n, seed):
+    """(kind, size, conf, image, body, query) for n requests: JPEG and raw
+    frames alternating, both buckets, mixed per-request conf."""
+    import cv2
+    reqs = []
+    for i, img in enumerate(serve_images(seed, n)):
+        size = SERVE_SIZES[(i // 2) % 2]
+        conf = SERVE_CONFS[i % 3]
+        query = f"size={size}" + ("" if conf is None else f"&conf={conf}")
+        if i % 2 == 0:
+            ok, jpeg = cv2.imencode(".jpg", img)
+            if not ok:
+                raise OSError("cannot encode a test JPEG")
+            # the server decodes the same bytes with the same library
+            reqs.append(("detect", size, conf,
+                         cv2.imdecode(jpeg, cv2.IMREAD_COLOR),
+                         jpeg.tobytes(), query))
+        else:
+            h, w = img.shape[:2]
+            reqs.append(("detect_raw", size, conf, img, img.tobytes(),
+                         f"{query}&h={h}&w={w}"))
+    return reqs
+
+
+def post_all(base, reqs):
+    """Every request POSTed from SERVE_CLIENTS threads; (bodies, seconds)."""
+    import urllib.request
+
+    def post(req):
+        kind, _, _, _, body, query = req
+        r = urllib.request.Request(f"{base}/v1/{kind}?{query}", data=body,
+                                   method="POST")
+        with urllib.request.urlopen(r, timeout=300) as resp:
+            if resp.status != 200:
+                raise AssertionError(f"HTTP {resp.status}")
+            return json.loads(resp.read())
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        futs = [pool.submit(post, r) for r in reqs]
+        bodies = [f.result(timeout=600) for f in futs]
+    return bodies, time.perf_counter() - t0
+
+
+class BatchLog:
+    """Installed as a predictor's ``dispatch``: keeps every batch of
+    canvases the batcher dispatches, as it was composed. A row's
+    detections may depend on its batchmates (the class-offset span of the
+    NMS is the batch's largest coordinate, as in the JAX package's
+    postprocess), so the direct predictor is held to the served rows on
+    the same batches. The batcher stacks a fresh array for every batch and
+    never writes it after dispatch, so the log keeps a reference (a list
+    append, atomic under the GIL) and adds no copy to the timed traffic."""
+
+    def __init__(self, predictor):
+        self.dispatch = predictor.dispatch
+        self.batches = []
+        predictor.dispatch = self
+
+    def __call__(self, images):
+        self.batches.append(images)
+        return self.dispatch(images)
+
+
+def expected_responses(runtime, predictor, batches, reqs):
+    """The response each request should get: the rows that ``predictor``
+    (direct, no batcher) gives for the request's canvas in the batch it
+    was served in, through the same post-NMS filter and unmapping as the
+    batcher, as result_to_json renders them."""
+    import hashlib
+    from yolov4_tpu_torch.ops.boxes import unmap_to_source_xyxy
+    from yolov4_tpu_torch.serve import DetectionResult, result_to_json
+
+    def key(canvas):
+        return hashlib.sha1(canvas.tobytes()).hexdigest()
+
+    rows = {}
+    for batch in batches:
+        dets, valid = predictor(batch)
+        for canvas, d, v in zip(batch, dets, valid):
+            rows[key(canvas)] = d[v]
+    out = []
+    for req in reqs:
+        canvas, info = runtime.preprocess(req[3], req[1])
+        d = rows[key(canvas)]
+        scores = d[:, 4] * d[:, 5]
+        if req[2] is not None:
+            d, scores = d[scores >= req[2]], scores[scores >= req[2]]
+        boxes = (np.asarray(unmap_to_source_xyxy(
+            d[:, :4], info[:2], info[2:4], info[4:6]), np.float32)
+            if d.shape[0] else np.zeros((0, 4), np.float32))
+        out.append(result_to_json(DetectionResult(
+            boxes=boxes, scores=scores.astype(np.float32),
+            class_ids=d[:, 6].astype(np.int32), img_size=req[1])))
+    return out
+
+
+def check_responses(bodies, reqs, wants, label):
+    """Every response's detections equal the direct predictor's."""
+    n_dets = 0
+    for body, req, want in zip(bodies, reqs, wants):
+        if (body["img_size"] != want["img_size"]
+                or body["detections"] != want["detections"]):
+            raise AssertionError(f"{label}: the {req[0]} response for size "
+                                 f"{req[1]} conf {req[2]} differs from the "
+                                 f"direct predictor's rows")
+        n_dets += body["num_detections"]
+    if n_dets == 0:
+        raise AssertionError(f"{label}: no detection in any response")
+    return n_dets
+
+
+def serve_metrics(runtime, n, seconds):
+    lat = runtime.metrics.snapshot()["latency"]
+    counters = runtime.metrics.snapshot()["counters"]
+    return dict(requests=n, seconds=seconds, requests_per_s=n / seconds,
+                e2e_p50_ms=lat["e2e_ms"]["p50"],
+                e2e_p99_ms=lat["e2e_ms"]["p99"],
+                queue_p50_ms=lat["queue_ms"]["p50"],
+                queue_p99_ms=lat["queue_ms"]["p99"],
+                batch_ms_p50=lat["batch_ms"]["p50"],
+                mean_batch_fill=lat["batch_fill"]["mean_window"],
+                batches=counters["batches_total"],
+                errors=counters["errors_total"])
+
+
+def run_traffic(runtime, reqs, kernels, label):
+    """Serve ``reqs`` over HTTP on 127.0.0.1 (port 0) with K1's and K2's
+    counts set to 0 just before and read just after; (bodies, metrics,
+    K1, K2, K2 conv launches)."""
+    from yolov4_tpu_torch.serve import make_server, serve_background
+    nms_cuda, csp_cuda = kernels
+    srv = make_server(runtime, host="127.0.0.1", port=0)
+    thread = serve_background(srv)
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        nms_cuda.greedy_nms_mask_cuda.launches = 0
+        csp_cuda.fused_csp_stage_cuda.launches = 0
+        conv0 = csp_cuda.conv_launches()
+        bodies, seconds = post_all(base, reqs)
+        torch.cuda.synchronize()
+        k1 = nms_cuda.greedy_nms_mask_cuda.launches
+        k2 = csp_cuda.fused_csp_stage_cuda.launches
+        conv = csp_cuda.conv_launches() - conv0
+    finally:
+        srv.shutdown()
+        thread.join(60)
+        srv.server_close()
+    m = serve_metrics(runtime, len(reqs), seconds)
+    if m["errors"]:
+        raise AssertionError(f"{label}: {m['errors']} errors")
+    log(f"[serve] {label}: {len(reqs)} requests from {SERVE_CLIENTS} "
+        f"clients in {seconds:.2f}s: {m['requests_per_s']:.1f} requests/s, "
+        f"e2e p50 {m['e2e_p50_ms']:.1f} / p99 {m['e2e_p99_ms']:.1f} ms, "
+        f"queue p50 {m['queue_p50_ms']:.1f} / p99 {m['queue_p99_ms']:.1f} "
+        f"ms, batch p50 {m['batch_ms_p50']:.1f} ms, mean batch fill "
+        f"{m['mean_batch_fill']:.3f}, {m['batches']} batches; K1 {k1}, K2 "
+        f"{k2}, K2 conv launches {conv}")
+    return bodies, m, k1, k2, conv
+
+
+def write_video(path, n, hw=(360, 480)):
+    """A cv2-written synthetic clip (mp4v, else MJPG in .avi); its path."""
+    import cv2
+    for fourcc, ext in (("mp4v", ".mp4"), ("MJPG", ".avi")):
+        p = path.with_suffix(ext)
+        w = cv2.VideoWriter(str(p), cv2.VideoWriter_fourcc(*fourcc), 10.0,
+                            (hw[1], hw[0]))
+        if not w.isOpened():
+            continue
+        rng = np.random.default_rng(0)
+        for i in range(n):
+            frame = rng.integers(0, 255, (*hw, 3), np.uint8)
+            cv2.rectangle(frame, (20 + 4 * i, 40), (200 + 4 * i, 200),
+                          (0, 0, 255), -1)
+            w.write(frame)
+        w.release()
+        return p
+    raise AssertionError("no cv2 video encoder (mp4v, MJPG) to write a clip")
+
+
+def phase_video(detect_mod, kernels, report, work):
+    """``python -m yolov4_tpu_torch.detect``'s entry point on a synthetic
+    clip: every frame written annotated, K1 once per batch of 8, and K2
+    never (detect's default cfg has ``MODEL.PALLAS_CSP`` false)."""
+    import cv2
+    nms_cuda, csp_cuda = kernels
+    src = write_video(work / "clip", VIDEO_FRAMES)
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    t0 = time.time()
+    dest = detect_mod.main(["--source", str(src), "--dest",
+                            str(work / "video_out"), "--batch-size", "8"])
+    seconds = time.time() - t0
+    launched = nms_cuda.greedy_nms_mask_cuda.launches
+    k2_launched = csp_cuda.fused_csp_stage_cuda.launches
+    outs = list(dest.iterdir())
+    if len(outs) != 1:
+        raise AssertionError(f"detect on a video wrote {outs}")
+    cap = cv2.VideoCapture(str(outs[0]))
+    frames = 0
+    while cap.read()[0]:
+        frames += 1
+    cap.release()
+    batches = -(-VIDEO_FRAMES // 8)
+    if frames != VIDEO_FRAMES or launched != batches or k2_launched:
+        raise AssertionError(f"video: {frames} frames written of "
+                             f"{VIDEO_FRAMES}, K1 {launched} launches for "
+                             f"{batches} batches, K2 {k2_launched} (want 0)")
+    log(f"[serve] detect on a {VIDEO_FRAMES}-frame clip ({src.suffix}): "
+        f"{frames} frames written to {outs[0].name}, K1 {launched} launches, "
+        f"K2 {k2_launched}, {seconds:.1f}s")
+    report["video"] = dict(frames=frames, k1_launches=launched,
+                           k2_launches=k2_launched, seconds=seconds,
+                           codec=src.suffix)
+
+
+def phase_serve(cfg_cls, build_model, detect_mod, nms_cuda, csp_cuda, plain,
+                smi, report):
+    """The serving path (this slice's main path): K2 at 416 against its
+    plain version; the ServingRuntime (buckets 608 and 416 at batch 16
+    sharing one full-width bf16 PALLAS_CSP model) over HTTP, every
+    response against the direct predictor, K1/K2 counted; the 608 bucket
+    exported, reloaded bit-identical, and served from the artifact; a
+    video through detect. Returns {run: (K1, K2)} launches."""
+    from yolov4_tpu_torch.serve import ServingRuntime
+    from yolov4_tpu_torch.utils.export import export_serving, load_serving
+
+    t_phase = time.time()
+    phase_k2_416(csp_cuda, plain, report)
+    work = ROOT / "runs" / "chip_smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    kernels = (nms_cuda, csp_cuda)
+    cfg = cfg_cls.from_dict({"MODEL": {"PALLAS_CSP": True}})
+    sd = redraw_bn(build_model(cfg, device="cpu").state_dict(),
+                   np.random.default_rng(3))
+    runtime = ServingRuntime(cfg, state_dict=sd, sizes=list(SERVE_SIZES),
+                             batch_size=16, conf_thre=0.25, device="cuda")
+    preds = {s: b.predictor for s, b in runtime.buckets.items()}
+    if preds[608].model is not preds[416].model:
+        raise AssertionError("the buckets do not share one model")
+    t0 = time.time()
+    runtime.start(warmup=True)
+    warm_s = time.time() - t0
+    logs = {s: BatchLog(p) for s, p in preds.items()}
+    launches = {}
+    try:
+        reqs = serve_requests(SERVE_REQUESTS, seed=21)
+        bodies, live, k1, k2, conv = run_traffic(runtime, reqs, kernels,
+                                                 "live runtime")
+        batches = live["batches"]
+        if k1 != batches or k2 != 3 * batches or conv != 14 * batches:
+            raise AssertionError(f"live: K1 {k1}, K2 {k2}, conv {conv} "
+                                 f"launches for {batches} batches (want "
+                                 f"1, 3 and 14 per batch)")
+        launches["live"] = (k1, k2)
+        for size, log_ in logs.items():     # the direct predictor again
+            preds[size].dispatch = log_.dispatch
+        wants = [None] * len(reqs)
+        for size in SERVE_SIZES:
+            idx = [i for i, r in enumerate(reqs) if r[1] == size]
+            for i, want in zip(idx, expected_responses(
+                    runtime, preds[size], logs[size].batches,
+                    [reqs[i] for i in idx])):
+                wants[i] = want
+        live["detections"] = check_responses(bodies, reqs, wants, "live")
+        log(f"[serve] every live response equals the direct predictor's "
+            f"rows on the same batches ({live['detections']} detections)")
+
+        # export the 608 bucket, reload it, hold it bit-identical
+        path = work / "m608.y4t"
+        t0 = time.time()
+        header = export_serving(preds[608], str(path))
+        export_s = time.time() - t0
+        artifact_mb = path.stat().st_size / 1e6
+        t0 = time.time()
+        art = load_serving(str(path))
+        load_s = time.time() - t0
+        imgs = np.stack([runtime.preprocess(img, 608)[0]
+                         for img in serve_images(22, 16)])
+        got = art.predict(imgs)
+        want = preds[608].fetch_local(preds[608].dispatch(imgs))
+        for g, w, name in zip(got, want, header["outputs"]):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"artifact {name} differs from the "
+                                     f"live predictor's")
+        log(f"[serve] 608 bucket exported in {export_s:.1f}s "
+            f"({artifact_mb:.1f} MB), loaded in {load_s:.1f}s, "
+            f"bit-identical to the live predictor on a batch of 16 "
+            f"({int(got[1].sum())} valid rows)")
+        del art
+    finally:
+        runtime.close()
+
+    art_rt = ServingRuntime.from_artifacts([str(path)])
+    art_rt.start(warmup=True)
+    art_log = BatchLog(art_rt.buckets[608].predictor)
+    art_reqs = [r for r in serve_requests(2 * SERVE_ARTIFACT_REQUESTS,
+                                          seed=23) if r[1] == 608]
+    try:
+        bodies, from_art, k1, k2, _ = run_traffic(art_rt, art_reqs, kernels,
+                                                  "artifact runtime")
+        batches = from_art["batches"]
+        if k1 != batches or k2 != 3 * batches:
+            raise AssertionError(f"artifact: K1 {k1}, K2 {k2} launches for "
+                                 f"{batches} batches")
+        launches["artifact"] = (k1, k2)
+    finally:
+        art_rt.close()
+    # the served batches again through the live direct predictor
+    from_art["detections"] = check_responses(
+        bodies, art_reqs, expected_responses(art_rt, preds[608],
+                                             art_log.batches, art_reqs),
+        "artifact")
+    log(f"[serve] every artifact response equals the live direct "
+        f"predictor's rows on the same batches "
+        f"({from_art['detections']} detections)")
+    del runtime, preds, art_rt, art_log
+    torch.cuda.empty_cache()
+
+    phase_video(detect_mod, kernels, report, work)
+    launches["video"] = (report["video"]["k1_launches"],
+                         report["video"]["k2_launches"])
+    shutil.rmtree(work, ignore_errors=True)
+    report["serve"] = dict(live=live, artifact=from_art, warmup_s=warm_s,
+                           export_s=export_s, load_s=load_s,
+                           artifact_mb=artifact_mb,
+                           launches=launches, card=smi,
+                           seconds=time.time() - t_phase)
+    log(f"[serve] {smi}: phase in {report['serve']['seconds']:.1f}s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1977,6 +2446,14 @@ def main() -> int:
                          fused_csp_stage_plain, launch_plan, report)
     k2_launches = phase_val(val_mod, COCO_CLASS_IDS, nms_cuda, csp_cuda,
                             report)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    serve_launches = phase_serve(Config, build_model, detect_mod, nms_cuda,
+                                 csp_cuda, fused_csp_stage_plain, smi, report)
+    serve_k1, serve_k2 = (sum(run[i] for run in serve_launches.values())
+                          for i in (0, 1))
     train = train_api()
     phase_train_vs_cpu(Config, build_model, train, report)
     phase_train_full(Config, build_model, train, report)
@@ -1989,10 +2466,6 @@ def main() -> int:
                             for i in (0, 1))
     phase_device_aug(Config, build_model, train, report)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     ddp_launches = phase_ddp(Config, build_model, train, COCO_CLASS_IDS, smi,
                              report)
     ddp_k1, ddp_k2 = (sum(run[i] for run in ddp_launches.values())
@@ -2002,10 +2475,14 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/nms.cu",
         "replaces": "yolov4_tpu/ops/nms_pallas.py:140",
-        # the detection path's batches and the Trainer's validations (the
-        # three Trainer runs and their resumes; of them, the runs with
+        # the detection path's batches, the serving phase's (live runtime,
+        # artifact runtime, video), the Trainer's validations (the three
+        # Trainer runs and their resumes; of them, the runs with
         # AUGMENTATION.DEVICE), and phase 12's data-parallel validations
-        "launches": launches + trainer_k1 + ddp_k1,
+        "launches": launches + serve_k1 + trainer_k1 + ddp_k1,
+        "launches_in_serving": serve_k1,
+        "launches_in_serving_by_run": {k: v[0] for k, v in
+                                       serve_launches.items()},
         "launches_in_trainer": trainer_k1,
         "launches_in_device_aug_trainer": device_k1,
         "launches_in_ddp": ddp_k1,
@@ -2029,8 +2506,12 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/csp.cu",
         "replaces": "yolov4_tpu/ops/csp_pallas.py:344",
-        # val's batches, the Trainer's validations and phase 12's
-        "launches": k2_launches + trainer_k2 + ddp_k2,
+        # val's batches, the serving phase's, the Trainer's validations
+        # and phase 12's
+        "launches": k2_launches + serve_k2 + trainer_k2 + ddp_k2,
+        "launches_in_serving": serve_k2,
+        "launches_in_serving_by_run": {k: v[1] for k, v in
+                                       serve_launches.items()},
         "launches_in_trainer": trainer_k2,
         "launches_in_device_aug_trainer": device_k2,
         "launches_in_ddp": ddp_k2,
@@ -2050,6 +2531,8 @@ def main() -> int:
         "cudnn_convs_ms": sum(r["cudnn_convs_ms"] for r in stages),
         "plan_bound_ms": sum(r["plan_bound_ms"] for r in stages),
         "per_stage": stages,
+        "per_stage_416": [r for r in report["serve_k2_416"]
+                          if r["dtype"] == "bfloat16"],
     }]}
     print(json.dumps({"report": report}))
     print(smi)

@@ -138,6 +138,10 @@ class OraclePredictor:
             valid[i, :n] = True
         return det, valid
 
+    @staticmethod
+    def fetch_local(out):
+        return tuple(t.numpy() for t in out)
+
 
 class LoaderWithHook:
     def __init__(self, loader, predictor):
@@ -179,6 +183,16 @@ def test_val_main_on_cpu(tmp_path):
                          "--batch-size", "3", "--conf-thre", "0.001"])
     assert np.isfinite(ap) and np.isfinite(ap50)
     assert 0.0 <= ap <= ap50 <= 1.0
-    with pytest.raises(SystemExit, match="JAX package checkpoint"):
-        val.main([root, "-c", str(cfg_path), "--device", "cpu",
-                  "--checkpoint", str(tmp_path / "model.ckpt")])
+    # a JAX package .ckpt of the same weights scores the same
+    from yolov4_tpu.utils.checkpoint import save_checkpoint
+    from yolov4_tpu.utils.torch_convert import convert_state_dict
+    from yolov4_tpu_torch.config import Config
+    from yolov4_tpu_torch.models import build_model
+    model = build_model(Config.from_dict(yaml.safe_load(cfg_path.read_text())),
+                        device="cpu")
+    save_checkpoint({"variables": convert_state_dict(model.state_dict())},
+                    False, output_dir=str(tmp_path), filename="model.ckpt")
+    assert val.main([root, "-c", str(cfg_path), "--device", "cpu",
+                     "--batch-size", "3", "--conf-thre", "0.001",
+                     "--checkpoint", str(tmp_path / "model.ckpt")]) \
+        == (ap, ap50)

@@ -38,7 +38,10 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "utils.metrics", "val", "ops.loss", "optim.optimizers",
                  "optim.schedules", "parallel.train_step", "parallel.dist",
                  "utils.checkpoint", "utils.profiling", "engine.trainer",
-                 "train"):
+                 "train", "utils.msgpack", "utils.export", "serve",
+                 "serve.metrics", "serve.batcher", "serve.server",
+                 "serve.artifact", "serve.__main__",
+                 "tools.export_serving"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]
     assert len(result["modules"]) >= 30
     assert result["forbidden"] == []

@@ -138,6 +138,10 @@ class NoisyOracle:
                 valid[i, :n] = True
         return det, valid
 
+    @staticmethod
+    def fetch_local(out):
+        return tuple(t.numpy() for t in out)
+
 
 class OracleLoader:
     """Hands each batch's targets to the NoisyOracle before yielding it."""

@@ -54,6 +54,7 @@
 // 1e-4 of the plain version with TF32 off. It is not on the main path; its
 // weights are plain [K, N] matrices.
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -65,7 +66,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-long long g_conv_launches = 0;  // kernel launches enqueued, both dtypes
+// kernel launches enqueued, both dtypes; atomic, since ctypes releases the
+// GIL and two serving buckets' host threads may run csp_stage at once
+std::atomic<long long> g_conv_launches{0};
 
 // ---------------------------------------------------------------------------
 // float32: one scalar-FMA implicit GEMM per conv
@@ -1158,13 +1161,17 @@ int launch(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  static int sms = 0;  // one persistent block per SM
+  // one persistent block per SM; threads that race here all store the
+  // same count
+  static std::atomic<int> g_sms{0};
+  int sms = g_sms.load(std::memory_order_relaxed);
   if (sms == 0) {
     int dev = 0;
     err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
+    g_sms.store(sms, std::memory_order_relaxed);
   }
   const long long tiles = (p.m + TILE_M - 1) / TILE_M;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
@@ -1277,7 +1284,7 @@ extern "C" int csp_stage(int is_bf16, const void* x, void* out, void* P,
 }
 
 // Conv kernel launches enqueued by csp_stage since the library was loaded.
-extern "C" long long csp_conv_launches(void) { return g_conv_launches; }
+extern "C" long long csp_conv_launches(void) { return g_conv_launches.load(); }
 
 // Dynamic shared memory of the bf16 kernel of launch kind `kind` (the order
 // of wg::Kind) at width `cp`, or -1 where no such instance exists.

@@ -1,4 +1,4 @@
-"""Image-directory detection CLI on the port.
+"""Image and video detection CLI on the port.
 
 Usage:
     python -m yolov4_tpu_torch.detect [--cfg configs/yolov4_Tianxiaomo.cfg] \
@@ -8,10 +8,14 @@ Usage:
 
 Images go through the eval transform in batches, one device program
 (forward + decode + NMS) per batch, and back to the host to be unmapped to
-source pixels, drawn and written under ``<dest>/exp<N>/``. Runs on CUDA
-unless ``--device`` names another device; a missing card is an error.
-Checkpoints are reference ``.pth``/``.pth.tar``/``.pt`` or ``.npz`` state
-dicts; without one the weights are the reference init from seed 0.
+source pixels, drawn and written under ``<dest>/exp<N>/``. A ``--source``
+video file (``VIDEO_EXTS``) is read frame by frame through the same
+batches and written annotated as ``<stem>_det.mp4`` (``.avi`` with MJPG
+where the mp4v encoder is missing; the JAX package's ``process_video``).
+Runs on CUDA unless ``--device`` names another device; a missing card is
+an error. Checkpoints are a JAX package ``.ckpt``, reference
+``.pth``/``.pth.tar``/``.pt`` or ``.npz`` state dicts; without one the
+weights are the reference init from seed 0.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from yolov4_tpu_torch.utils.convert import load_weights
 from yolov4_tpu_torch.utils.visualize import class_name, draw_detections
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 logger = logging.getLogger("yolov4_tpu_torch.detect")
 
@@ -43,9 +48,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--cfg", type=str, default=None,
                         help="YAML config (default: built-in defaults)")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="weights (.pth / .pth.tar / .pt / .npz)")
+                        help="weights (.ckpt / .pth / .pth.tar / .pt / .npz)")
     parser.add_argument("--source", type=str, default="./data/images/",
-                        help="image file or directory")
+                        help="image file, directory or video file")
     parser.add_argument("--dest", type=str, default="./runs/detect/",
                         help="output directory root")
     parser.add_argument("--conf-thre", type=float, default=-0.1)
@@ -83,8 +88,84 @@ def list_images(source: str) -> List[str]:
         if f.lower().endswith(IMAGE_EXTS))
 
 
+def draw_frame(frame: np.ndarray, info, det: np.ndarray) -> np.ndarray:
+    """A copy of ``frame`` with ``det`` (the valid rows of one image, in
+    model-input pixels) unmapped to it by ``info`` and drawn."""
+    src_h, src_w, dst_h, dst_w, off_x, off_y = info[:6]
+    boxes = unmap_to_source_xyxy(det[:, :4], (src_h, src_w), (dst_h, dst_w),
+                                 (off_x, off_y))
+    return draw_detections(frame.copy(), boxes, det[:, 4] * det[:, 5],
+                           det[:, 6].astype(int))
+
+
+def process_video(predictor, transform, img_size: int, src_path: str,
+                  out_path: str, progress=None):
+    """Batched detection over a video's frames; writes an annotated copy.
+
+    Frames go through the same device program as still images, one batch
+    in flight while the previous one is drawn and encoded. Returns
+    (frames_written, actual_out_path): the path takes an ``.avi``
+    extension when the mp4v encoder is missing and MJPG is used."""
+    cap = cv2.VideoCapture(src_path)
+    if not cap.isOpened():
+        raise SystemExit(f"error: cannot open video {src_path!r}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 25.0
+    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             fps, (w, h))
+    if not writer.isOpened():  # codec fallback
+        out_path = os.path.splitext(out_path)[0] + ".avi"
+        writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"MJPG"),
+                                 fps, (w, h))
+    if not writer.isOpened():
+        # write() on an unopened writer is a silent no-op: fail loudly
+        # instead of reporting frames that never reached the disk
+        cap.release()
+        raise SystemExit("error: no usable cv2 video encoder "
+                         "(tried mp4v, MJPG)")
+
+    def read_batch():
+        frames, canvases, infos = [], [], []
+        while len(frames) < predictor.batch_size:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            canvas, target = transform([frame], [np.zeros((0, 5))], img_size)
+            frames.append(frame)
+            canvases.append(canvas)
+            infos.append(target["img_info"])
+        return frames, canvases, infos
+
+    def draw(frames, infos, out):
+        dets, valids = predictor.fetch_local(out)[:2]
+        for i, frame in enumerate(frames):
+            writer.write(draw_frame(frame, infos[i], dets[i][valids[i]]))
+
+    n_out = 0
+    pending = None  # (frames, infos, dispatched batch)
+    try:
+        while True:
+            frames, canvases, infos = read_batch()
+            nxt = ((frames, infos, predictor.dispatch(np.stack(canvases)))
+                   if frames else None)
+            if pending is not None:
+                draw(*pending)
+                n_out += len(pending[0])
+                if progress:
+                    progress(n_out)
+            pending = nxt
+            if pending is None:
+                break
+    finally:
+        cap.release()
+        writer.release()
+    return n_out, out_path
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Path:
-    """Run detection; returns the directory the drawn images went to."""
+    """Run detection; returns the directory the drawn images (or the
+    annotated video) went to."""
     args = parse_args(argv)
     cfg = load_config(args.cfg)
     if args.letterbox:
@@ -93,12 +174,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     nms_thre = cfg["TEST"]["NMSTHRE"] if args.nms_thre < 0 else args.nms_thre
     img_size = cfg["TEST"]["IMGSIZE"]
 
-    paths = list_images(args.source)
-    if not paths:
-        raise FileNotFoundError(
-            f"no image files ({'/'.join(IMAGE_EXTS)}) under {args.source}")
-    logger.info(f"detecting {len(paths)} image(s) at {img_size}x{img_size}, "
-                f"conf {conf_thre}, nms {nms_thre}, device {args.device}")
+    video_mode = (os.path.isfile(args.source)
+                  and args.source.lower().endswith(VIDEO_EXTS))
+    paths = [] if video_mode else list_images(args.source)
+    if not video_mode:
+        if not paths:
+            raise FileNotFoundError(
+                f"no image files ({'/'.join(IMAGE_EXTS)}) under {args.source}")
+        logger.info(f"detecting {len(paths)} image(s) at {img_size}x"
+                    f"{img_size}, conf {conf_thre}, nms {nms_thre}, device "
+                    f"{args.device}")
 
     state_dict = None
     if args.ckpt:
@@ -108,12 +193,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
         logger.warning("no --ckpt given: running with the seed-0 random init")
 
     predictor = Predictor(cfg, state_dict=state_dict, img_size=img_size,
-                          batch_size=min(args.batch_size, len(paths)),
+                          batch_size=(args.batch_size if video_mode else
+                                      min(args.batch_size, len(paths))),
                           conf_thre=conf_thre, nms_thre=nms_thre,
                           device=args.device)
     transform = Transform(cfg, keep_uint8=True)
     dest = increment_path(os.path.join(args.dest, "exp"))
     t0 = time.time()
+    if video_mode:
+        stem = os.path.splitext(os.path.basename(args.source))[0]
+        logger.info(f"video {args.source} at {img_size}x{img_size}, conf "
+                    f"{conf_thre}, nms {nms_thre}, device {args.device}")
+        n, out_path = process_video(
+            predictor, transform, img_size, args.source,
+            os.path.join(str(dest), f"{stem}_det.mp4"),
+            progress=lambda k: (k % (args.batch_size * 8) == 0
+                                and logger.info(f"  {k} frames...")))
+        dt = time.time() - t0
+        logger.info(f"done: {n} frames in {dt:.2f}s "
+                    f"({n / max(dt, 1e-9):.1f} fps) -> {out_path}")
+        return dest
 
     def load_chunk(start):
         raw_imgs, batch, infos = [], [], []
@@ -128,14 +227,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
         return raw_imgs, np.stack(batch), infos
 
     def draw_chunk(start, raw_imgs, infos, out):
-        dets = out[0][:len(raw_imgs)].cpu().numpy()
-        valids = out[1][:len(raw_imgs)].cpu().numpy()
+        dets, valids = predictor.fetch_local(out)[:2]
         for i, raw in enumerate(raw_imgs):
             idx = start + i
-            src_h, src_w, dst_h, dst_w, off_x, off_y = infos[i][:6]
             det = dets[i][valids[i]]
-            boxes = unmap_to_source_xyxy(det[:, :4], (src_h, src_w),
-                                         (dst_h, dst_w), (off_x, off_y))
             cls_idxs = det[:, 6].astype(int)
             summary = {}
             for c in cls_idxs:
@@ -144,8 +239,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
                     or "no detections")
             logger.info(f"image {idx + 1}/{len(paths)} "
                         f"{os.path.basename(paths[idx])}: {desc}")
-            drawn = draw_detections(raw.copy(), boxes, det[:, 4] * det[:, 5],
-                                    cls_idxs)
+            drawn = draw_frame(raw, infos[i], det)
             out_path = os.path.join(str(dest), os.path.basename(paths[idx]))
             if not cv2.imwrite(out_path, drawn):
                 raise OSError(f"cannot write {out_path}")

@@ -144,11 +144,10 @@ def _validate(val_loader, predictor, verbose: bool) -> Tuple[float, float]:
     overflow = {"images": 0, "max_relevant": 0, "counted": False}
 
     def consume(pending):
-        det_dev, valid_dev, nrel_dev, infos, mask = pending
-        det = det_dev.cpu().numpy()
-        valid = valid_dev.cpu().numpy()
-        if nrel_dev is not None:
-            nrel = nrel_dev.cpu().numpy()[: len(mask)][np.asarray(mask, bool)]
+        out, infos, mask = pending
+        det, valid, *nrel = predictor.fetch_local(out)
+        if nrel:
+            nrel = nrel[0][: len(mask)][np.asarray(mask, bool)]
             overflow["counted"] = True
             if nrel.size:
                 overflow["images"] += int((nrel > det.shape[1]).sum())
@@ -168,8 +167,7 @@ def _validate(val_loader, predictor, verbose: bool) -> Tuple[float, float]:
     inflight: deque = deque()
     for bi, (imgs, target) in enumerate(val_loader):
         out = predictor.dispatch(imgs)
-        inflight.append((out[0], out[1], out[2] if len(out) > 2 else None,
-                         target["img_info"], target["batch_mask"]))
+        inflight.append((out, target["img_info"], target["batch_mask"]))
         if len(inflight) > IN_FLIGHT:
             consume(inflight.popleft())
         batch_time.update(time.time() - end)

@@ -18,13 +18,15 @@ BatchNorm scale ~ N(0, 0.01^2), BatchNorm bias zero.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolov4_tpu_torch.ops.csp import fold_conv_bn, pack_weights
+from yolov4_tpu_torch.ops.csp import (fold_conv_bn, pack_weights,
+                                      packed_dtype)
 from yolov4_tpu_torch.ops.csp_cuda import (fused_csp_stage_cuda,
                                            fused_csp_supported)
 
@@ -136,7 +138,9 @@ class _CSPStage(nn.Module):
     (False, True, or "auto" = on for CUDA tensors) sends the body of an
     eval forward without autograd through K2, with the BN-folded weights
     cached until one of the stage's parameters or buffers changes
-    (``load_state_dict``, a training step's BN statistics, ``.to``). The
+    (``load_state_dict``, a training step's BN statistics, ``.to``); inside
+    :func:`frozen_stage_weights` they are folded once and held fixed, for a
+    trace whose tensors have no storage to key the cache by. The
     state_dict is the same either way."""
 
     num_blocks: int
@@ -148,6 +152,7 @@ class _CSPStage(nn.Module):
         self.fused = fused
         self.fusable = act == "mish" and shortcut
         self._fold_cache = None
+        self._frozen = None
 
     def foldable(self) -> Dict[str, "ConvBNAct"]:
         """The body's ConvBNActs under their folded-dict names
@@ -159,26 +164,47 @@ class _CSPStage(nn.Module):
         raise NotImplementedError
 
     def folded_weights(self, x: torch.Tensor):
-        """(folded, packed) for x's device and dtype; packed (the kernel's
-        layout) only for a CUDA tensor."""
+        """(folded, packed) for x's device and dtype: the BN-folded weights
+        and the same packed (ops/csp.pack_weights, in the kernel's layout
+        on a card)."""
+        if self._frozen is not None:
+            return self._frozen
         key = (x.device, x.dtype) + tuple(
             (t.data_ptr(), t._version)
             for t in (*self.parameters(), *self.buffers()))
         if self._fold_cache is None or self._fold_cache[0] != key:
             folded = {name: fold_conv_bn(m)
                       for name, m in self.foldable().items()}
-            packed = (pack_weights(folded, self.num_blocks, x.dtype)
-                      if x.device.type == "cuda" else None)
+            packed = pack_weights(folded, self.num_blocks, packed_dtype(x))
             self._fold_cache = (key, folded, packed)
         return self._fold_cache[1:]
 
-    def _use_fused(self, x: torch.Tensor) -> bool:
+    def freeze(self) -> None:
+        """Fold and pack now, in the dtype and on the device of the base
+        conv's weights (the body's input), and hold the result until
+        :meth:`thaw`; a stage whose body would not go through K2 holds
+        nothing."""
+        w = self.base.conv.weight
+        probe = w.new_empty((1, w.shape[0], 1, 1))
+        self._frozen = None
+        if self._fuses(probe):
+            self._frozen = self.folded_weights(probe)
+
+    def thaw(self) -> None:
+        self._frozen = None
+
+    def _fuses(self, x: torch.Tensor) -> bool:
+        """Whether the body on NCHW ``x`` goes through K2 in an eval
+        forward without autograd."""
         on = self.fused is True or (self.fused == "auto" and x.is_cuda)
-        return (on and self.fusable and not self.training
-                and not torch.is_grad_enabled()
+        return (on and self.fusable
                 and fused_csp_supported((x.shape[0], x.shape[2], x.shape[3],
                                          x.shape[1]), self.num_blocks,
                                         x.dtype))
+
+    def _use_fused(self, x: torch.Tensor) -> bool:
+        return (not self.training and not torch.is_grad_enabled()
+                and self._fuses(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.base(x)
@@ -189,6 +215,23 @@ class _CSPStage(nn.Module):
         folded, packed = self.folded_weights(x)
         out = fused_csp_stage_cuda(nhwc, folded, self.num_blocks, packed)
         return out.permute(0, 3, 1, 2)
+
+
+@contextmanager
+def frozen_stage_weights(model: nn.Module) -> Iterator[None]:
+    """Inside the block every CSP stage of ``model`` computes its folded and
+    packed weights once, from the current parameters, and hands those same
+    tensors to K2 on every call: ``torch.export`` traces with tensors that
+    have no storage, so the cache's key cannot be read there, and the
+    packed weights become constants of the exported program."""
+    stages = [m for m in model.modules() if isinstance(m, _CSPStage)]
+    try:
+        for stage in stages:
+            stage.freeze()
+        yield
+    finally:
+        for stage in stages:
+            stage.thaw()
 
 
 class CSPDownSample0(_CSPStage):

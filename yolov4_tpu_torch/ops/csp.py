@@ -319,3 +319,36 @@ def pack_weights(folded: Folded, num_blocks: int,
             out += [_swizzled_chunks(wt.to(torch.bfloat16)).contiguous(),
                     bias]
     return out
+
+
+def packed_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of :func:`pack_weights`' list for the stage input ``x``:
+    x's own on a card, in the layout of the kernel for that dtype; float32
+    on the CPU, where the op's plain version reads the [K, N] layout back
+    by a reshape (:func:`unpack_weights`) and rounds the kernels to x's
+    dtype itself."""
+    return x.dtype if x.is_cuda else torch.float32
+
+
+def unpack_weights(packed, c: int, num_blocks: int) -> Folded:
+    """:func:`pack_weights`' inverse for its float32 layout: the folded
+    kernels ([k, k, ci, co] float32) and biases of a stage body with ``c``
+    channels (the custom op's CPU implementation, ops/csp_cuda.py)."""
+    widths = _value_widths(c, num_blocks)
+    gemms = [g for launch in launch_plan(c, num_blocks) for g in launch.gemms]
+    if len(packed) != 2 * len(gemms):
+        raise ValueError(f"expected {2 * len(gemms)} packed tensors, got "
+                         f"{len(packed)}")
+    if packed[0].dtype != torch.float32:
+        raise ValueError(f"the CPU reads float32 packed weights, got "
+                         f"{packed[0].dtype} (the card's layout)")
+    out: Folded = {}
+    for i, g in enumerate(gemms):
+        w, bias = packed[2 * i], packed[2 * i + 1]
+        col = 0
+        for name, out_name in zip(g.convs, g.outs):
+            co = widths[out_name]
+            kernel = w[:, col:col + co].reshape(g.ksize, g.ksize, -1, co)
+            out[name] = (kernel.contiguous(), bias[col:col + co].contiguous())
+            col += co
+    return out

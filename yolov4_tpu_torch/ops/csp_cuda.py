@@ -6,8 +6,14 @@ The kernel replaces the TPU kernel ``fused_csp_stage``
 its design answers that. It is built from the package's own source at
 first use (ops/cuda_build.py) and bound with ``ctypes``.
 
-A CPU tensor takes the plain version (ops/csp.fused_csp_stage_plain). A
-CUDA tensor launches the kernel or raises: there is no fallback.
+The stage body is the custom op ``torch.ops.yolov4_tpu_torch.
+fused_csp_stage`` on x and the packed weights (ops/csp.pack_weights), so
+that ``torch.export`` carries it into a serving artifact (utils/export.py):
+its CUDA implementation launches the kernel, its CPU implementation is the
+plain version on the weights read back from the float32 packed list
+(ops/csp.unpack_weights, fused_csp_stage_plain), and its fake
+implementation gives x's shape. A CUDA tensor launches the kernel or
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -16,14 +22,15 @@ import ctypes
 import re
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from yolov4_tpu_torch.ops.csp import (KERNEL_WIDTHS, Folded,
                                       fused_csp_stage_plain,
                                       kernel_gemm_shapes, kernel_widths,
-                                      pack_weights)
+                                      pack_weights, packed_dtype,
+                                      unpack_weights)
 from yolov4_tpu_torch.ops.cuda_build import (ARCH_FLAGS, COMMON_FLAGS,
                                              CSRC_DIR, build_library,
                                              ptxas_report)
@@ -36,6 +43,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
 _lib = None
+# serving assembles batches in several host threads at once
+_count_lock = threading.Lock()
 
 
 def build() -> Path:
@@ -153,24 +162,7 @@ def _check_packed(packed, c, num_blocks, x) -> None:
                     f"{t.device}")
 
 
-def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
-                         packed: Optional[Sequence[torch.Tensor]] = None
-                         ) -> torch.Tensor:
-    """One CSP stage body (everything after the base conv) on NHWC ``x``
-    [B, H, W, C], float32 or bfloat16; returns [B, H, W, C] in x's dtype.
-
-    ``folded``: the stage's BN-folded weights (ops/csp.fold_conv_bn,
-    names from ops/csp.stage_names). ``packed``: the same weights already
-    in the kernel's layout on x's device (ops/csp.pack_weights with x's
-    dtype), so that a caller that keeps them skips the packing.
-
-    On a CUDA tensor it enqueues the stage's conv kernels on the current
-    stream (no synchronisation; in bfloat16 the launches of
-    ops/csp.launch_plan) and adds one to ``fused_csp_stage_cuda.launches``;
-    on a CPU tensor it returns the plain version and launches nothing.
-    """
-    if x.device.type == "cpu":
-        return fused_csp_stage_plain(x, folded, num_blocks)
+def _check_input(x: torch.Tensor, num_blocks: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not fused_csp_supported(x.shape, num_blocks, x.dtype):
@@ -181,10 +173,23 @@ def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
                          f"num_blocks={num_blocks}")
     if not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC tensor")
+
+
+@torch.library.custom_op("yolov4_tpu_torch::fused_csp_stage",
+                         mutates_args=(), device_types="cpu")
+def fused_csp_stage_op(x: torch.Tensor, packed: List[torch.Tensor],
+                       num_blocks: int) -> torch.Tensor:
+    """The op's CPU implementation: the plain version on the weights the
+    packed list holds."""
+    folded = unpack_weights(packed, x.shape[-1], num_blocks)
+    return fused_csp_stage_plain(x, folded, num_blocks)
+
+
+@fused_csp_stage_op.register_kernel("cuda")
+def _fused_csp_stage_kernel(x: torch.Tensor, packed: List[torch.Tensor],
+                            num_blocks: int) -> torch.Tensor:
+    _check_input(x, num_blocks)
     b, h, w, c = x.shape
-    if packed is None:
-        packed = [t.to(x.device) for t in pack_weights(folded, num_blocks,
-                                                       x.dtype)]
     _check_packed(packed, c, num_blocks, x)
     m = b * h * w
     if x.dtype == torch.bfloat16:     # P, then t or p0, then p1
@@ -208,9 +213,40 @@ def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
                             b, h, w, c, num_blocks, stream)
     if err != 0:
         raise RuntimeError(f"csp_stage launch failed: CUDA error {err}")
-    fused_csp_stage_cuda.launches += 1
+    with _count_lock:
+        fused_csp_stage_cuda.launches += 1
     return out
 
 
-fused_csp_stage_cuda.launches = 0
+@fused_csp_stage_op.register_fake
+def _fused_csp_stage_fake(x, packed, num_blocks):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
+
+def fused_csp_stage_cuda(x: torch.Tensor, folded: Folded, num_blocks: int,
+                         packed: Optional[Sequence[torch.Tensor]] = None
+                         ) -> torch.Tensor:
+    """One CSP stage body (everything after the base conv) on NHWC ``x``
+    [B, H, W, C], float32 or bfloat16; returns [B, H, W, C] in x's dtype:
+    the custom op ``yolov4_tpu_torch::fused_csp_stage``.
+
+    ``folded``: the stage's BN-folded weights (ops/csp.fold_conv_bn,
+    names from ops/csp.stage_names). ``packed``: the same weights already
+    packed on x's device (ops/csp.pack_weights with ops/csp.packed_dtype:
+    the kernel's layout on a card, float32 on the CPU), so that a caller
+    that keeps them skips the packing.
+
+    On a CUDA tensor it enqueues the stage's conv kernels on the current
+    stream (no synchronisation; in bfloat16 the launches of
+    ops/csp.launch_plan) and adds one to ``fused_csp_stage_cuda.launches``;
+    on a CPU tensor it returns the plain version and launches nothing.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if packed is None:
+        packed = [t.to(x.device) for t in pack_weights(folded, num_blocks,
+                                                       packed_dtype(x))]
+    return fused_csp_stage_op(x, list(packed), num_blocks)
+
+
+fused_csp_stage_cuda.launches = 0

@@ -11,8 +11,12 @@ It is built from the package's own source at first use, with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``
 (ops/cuda_build.py), and bound with ``ctypes``.
 
-A CPU tensor takes the plain version (ops/nms.greedy_nms_mask). A CUDA
-tensor launches the kernel or raises: there is no fallback.
+The keep mask is the custom op ``torch.ops.yolov4_tpu_torch.
+greedy_nms_mask``, so that ``torch.export`` carries it into a serving
+artifact (utils/export.py): its CUDA implementation launches the kernel,
+its CPU implementation is the plain version (ops/nms.greedy_nms_mask), and
+its fake implementation gives the [B, K] bool shape. A CUDA tensor
+launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ MAX_K = 48 * 1024 * 8
 
 _lock = threading.Lock()
 _libs = {}
+# serving assembles batches in several host threads at once
+_count_lock = threading.Lock()
 
 
 def build(flags=NVCC_FLAGS) -> Path:
@@ -127,9 +133,38 @@ def _call(fn, *args, flags=NVCC_FLAGS) -> None:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
 
 
+@torch.library.custom_op("yolov4_tpu_torch::greedy_nms_mask",
+                         mutates_args=(), device_types="cpu")
+def greedy_nms_mask_op(boxes_xyxy: torch.Tensor, valid: torch.Tensor,
+                       iou_thresh: float) -> torch.Tensor:
+    """The op's CPU implementation: the plain version (copied, since it may
+    return ``valid`` itself and an op's output must not alias an input)."""
+    return greedy_nms_mask(boxes_xyxy, valid, iou_thresh).clone()
+
+
+@greedy_nms_mask_op.register_kernel("cuda")
+def _greedy_nms_mask_kernel(boxes_xyxy: torch.Tensor, valid: torch.Tensor,
+                            iou_thresh: float) -> torch.Tensor:
+    boxes_xyxy, b, k = _check_boxes(boxes_xyxy)
+    valid = _check_valid(valid, b, k, boxes_xyxy.device)
+    mask = _mask_scratch(b, k, boxes_xyxy.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes_xyxy.device)
+    _call("nms_keep_mask", boxes_xyxy, valid, mask, keep, b, k,
+          float(iou_thresh))
+    with _count_lock:
+        greedy_nms_mask_cuda.launches += 1
+    return keep
+
+
+@greedy_nms_mask_op.register_fake
+def _greedy_nms_mask_fake(boxes_xyxy, valid, iou_thresh):
+    return boxes_xyxy.new_empty(boxes_xyxy.shape[:2], dtype=torch.bool)
+
+
 def greedy_nms_mask_cuda(boxes_xyxy: torch.Tensor, valid: torch.Tensor,
                          iou_thresh: float) -> torch.Tensor:
-    """Drop-in for ops/nms.greedy_nms_mask, for any K up to ``MAX_K``.
+    """Drop-in for ops/nms.greedy_nms_mask, for any K up to ``MAX_K``:
+    the custom op ``yolov4_tpu_torch::greedy_nms_mask``.
 
     boxes_xyxy: [B, K, 4] float32, score-sorted along K; valid: [B, K]
     bool on the same device. Returns keep [B, K] bool. On a CUDA tensor it
@@ -137,16 +172,9 @@ def greedy_nms_mask_cuda(boxes_xyxy: torch.Tensor, valid: torch.Tensor,
     one to ``greedy_nms_mask_cuda.launches``; on a CPU tensor it returns the
     plain version's mask and launches nothing.
     """
-    if boxes_xyxy.device.type == "cpu":
-        return greedy_nms_mask(boxes_xyxy, valid, iou_thresh)
-    boxes_xyxy, b, k = _check_boxes(boxes_xyxy)
-    valid = _check_valid(valid, b, k, boxes_xyxy.device)
-    mask = _mask_scratch(b, k, boxes_xyxy.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes_xyxy.device)
-    _call("nms_keep_mask", boxes_xyxy, valid, mask, keep, b, k,
-          float(iou_thresh))
-    greedy_nms_mask_cuda.launches += 1
-    return keep
+    if boxes_xyxy.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {boxes_xyxy.device}")
+    return greedy_nms_mask_op(boxes_xyxy, valid, float(iou_thresh))
 
 
 greedy_nms_mask_cuda.launches = 0

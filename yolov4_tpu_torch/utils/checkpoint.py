@@ -12,9 +12,11 @@ step, the best APs and, for a mid-epoch save, ``mid_epoch`` and
 so a preemption never leaves a truncated ``checkpoint.pth`` or
 ``model_best.pth``; a ``.meta.json`` copy of ``meta`` sits beside each.
 
-``load_pretrained_backbone`` grafts the backbone of a port checkpoint or
-of a reference ``.pth.tar`` (reference yolov4.py:295-302). A JAX package
-``.ckpt`` is refused: the port has no reader for it.
+``load_pretrained_backbone`` grafts the backbone of a port checkpoint, of
+a reference ``.pth.tar`` (reference yolov4.py:295-302) or of a JAX package
+``.ckpt`` (its ``backbone`` subtree, as the JAX package's
+``load_pretrained_backbone``). A resume refuses a ``.ckpt``: the JAX
+optimizer state has no mapping onto torch's.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from yolov4_tpu_torch.utils.convert import load_weights, torch_load
+from yolov4_tpu_torch.utils.convert import (load_jax_checkpoint,
+                                           load_weights, state_dict_from_jax,
+                                           torch_load)
 
 CKPT_NAME = "checkpoint.pth"
 BEST_NAME = "model_best.pth"
@@ -35,11 +39,14 @@ META_SUFFIX = ".meta.json"
 
 
 def refuse_jax_checkpoint(path: str) -> None:
+    """A resume needs the optimizer's state, and a JAX package ``.ckpt``
+    holds optax's, which has no mapping onto torch.optim's."""
     if str(path).endswith(".ckpt"):
         raise ValueError(
-            f"{path} is a JAX package checkpoint; the port has no reader for "
-            "it yet. Export it as a reference state dict (.pth.tar) and pass "
-            "that.")
+            f"{path} is a JAX package checkpoint: its weights load (val, "
+            "detect, serve, MODEL.BACKBONE_PRETRAINED), but a resume needs "
+            "the optimizer state, and optax's has no mapping onto the "
+            "port's; start a new run from its weights instead.")
 
 
 def _atomic_write(dst: str, write_fn) -> None:
@@ -72,18 +79,27 @@ def save_checkpoint(bundle: Dict[str, Any], is_best: bool,
 
 
 def load_checkpoint_raw(path: str) -> Dict[str, Any]:
-    """A bundle written by save_checkpoint, on the CPU."""
+    """A bundle written by save_checkpoint, on the CPU (what a resume
+    reads)."""
     refuse_jax_checkpoint(path)
     return torch_load(path)
 
 
 def load_pretrained_backbone(model: nn.Module, path: str) -> None:
     """Load the ``backbone.*`` weights of a checkpoint into ``model``'s
-    backbone with a strict load: a port checkpoint or state dict, or a
+    backbone with a strict load: a port checkpoint or state dict, a
     reference classifier/detector ``.pth.tar`` (DDP ``module.`` prefixes
-    stripped)."""
-    refuse_jax_checkpoint(path)
-    sd = load_weights(path)
+    stripped), or a JAX package ``.ckpt`` (the ``backbone`` subtree of its
+    variables, or of the file itself)."""
+    if str(path).endswith(".ckpt"):
+        raw = load_jax_checkpoint(path)
+        tree = raw.get("variables", raw)
+        sd = state_dict_from_jax({
+            coll: {"backbone": tree[coll]["backbone"]}
+            for coll in ("params", "batch_stats")
+            if "backbone" in tree.get(coll, {})})
+    else:
+        sd = load_weights(path)
     backbone = {k[len("backbone."):]: v for k, v in sd.items()
                 if k.startswith("backbone.")}
     if not backbone:

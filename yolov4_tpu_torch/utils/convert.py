@@ -12,8 +12,13 @@ plain ``load_state_dict``. This module adds:
     ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
     ``running_var``, plus ``num_batches_tracked`` = 0 for each BatchNorm
     so that a strict load succeeds;
-  * ``load_weights``: a ``.pth``/``.pth.tar``/``.pt``/``.npz`` file -> a
-    state_dict of tensors, with a DDP ``module.`` prefix stripped;
+  * ``load_jax_checkpoint``, ``jax_variables``: a JAX package ``.ckpt``
+    (flax msgpack, read by the port's own decoder, utils/msgpack.py) and
+    its model variables {'params', 'batch_stats'}, where the JAX
+    package's ``load_variables`` finds them;
+  * ``load_weights``: a ``.pth``/``.pth.tar``/``.pt``/``.npz``/``.ckpt``
+    file -> a state_dict of tensors, with a DDP ``module.`` prefix
+    stripped;
   * ``torch_load``: ``torch.load(weights_only=True)`` that also lets numpy
     scalars and dtypes through (the reference trainer's wrapper stores
     COCOeval's numpy float64 APs beside the weights) and names the global
@@ -28,6 +33,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from yolov4_tpu_torch.utils.msgpack import msgpack_restore
 
 Path = Tuple[str, ...]
 
@@ -82,6 +89,8 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             if isinstance(value, Mapping):
                 walk(collection, value, prefix + (key,))
                 continue
+            if isinstance(value, torch.Tensor):  # a bfloat16 leaf
+                value = value.float().numpy()
             arr = np.asarray(value, dtype=np.float32)
             if key == "kernel":
                 if arr.ndim == 4:
@@ -139,16 +148,43 @@ def torch_load(path: str) -> Any:
             "containers, Python scalars and numpy scalars load") from None
 
 
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """A JAX package ``.ckpt`` (utils/checkpoint.save_checkpoint there) as
+    nested dicts of numpy arrays (bfloat16 leaves as torch tensors)."""
+    with open(path, "rb") as f:
+        raw = msgpack_restore(f.read())
+    if not isinstance(raw, Mapping):
+        raise ValueError(f"{path}: not a JAX package checkpoint")
+    return raw
+
+
+def jax_variables(raw: Mapping[str, Any], path: str = "") -> Dict[str, Any]:
+    """The model variables of a loaded JAX checkpoint: its ``variables``
+    (a trainer bundle, EMA weights when it kept an EMA) or its top-level
+    ``params``/``batch_stats`` (the JAX package's ``load_variables``)."""
+    if "variables" in raw:
+        return raw["variables"]
+    if "params" in raw:
+        return {k: raw[k] for k in ("params", "batch_stats") if k in raw}
+    raise ValueError(f"{path}: unrecognised checkpoint layout: "
+                     f"{list(raw)[:8]}")
+
+
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """Read a weights file into a state_dict of CPU tensors.
 
-    ``.npz``: every array is one entry, keyed by its name. Otherwise a
+    ``.ckpt``: a JAX package checkpoint, mapped by
+    ``state_dict_from_jax``. ``.npz``: every array is one entry, keyed by
+    its name. Otherwise a
     ``torch.save`` file: a bare state_dict, the reference trainer's
     ``{epoch, state_dict, ...}`` wrapper (utils.py:17-24) or the port
     trainer's ``{variables, opt_state, meta, ...}`` bundle
     (utils/checkpoint.py), read by ``torch_load``. A leading DDP
     ``module.`` prefix is stripped.
     """
+    if str(path).endswith(".ckpt"):
+        return state_dict_from_jax(jax_variables(load_jax_checkpoint(path),
+                                                 path))
     if str(path).endswith(".npz"):
         with np.load(path) as blob:
             return _strip_ddp({k: blob[k] for k in blob.files})

@@ -8,9 +8,9 @@ Usage:
 
 COCO is a directory with ``annotations/instances_val2017.json`` and
 ``images/val2017/{id:012}.jpg``. Runs on CUDA unless ``--device`` names
-another device; a missing card is an error. Weights are reference
-``.pth``/``.pth.tar``/``.pt`` or ``.npz`` state dicts; without one the
-weights are the reference init from seed 0. ``MODEL.PALLAS_CSP`` in the
+another device; a missing card is an error. Weights are a JAX package
+``.ckpt``, reference ``.pth``/``.pth.tar``/``.pt`` or ``.npz`` state
+dicts; without one the weights are the reference init from seed 0. ``MODEL.PALLAS_CSP`` in the
 config runs CSP stages 1-3 through the fused stage kernel.
 """
 
@@ -36,7 +36,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("-c", "--cfg", type=str, default=None,
                         help="YAML config (default: built-in defaults)")
     parser.add_argument("-ckpt", "--checkpoint", type=str, default=None,
-                        help="weights (.pth / .pth.tar / .pt / .npz)")
+                        help="weights (.ckpt / .pth / .pth.tar / .pt / "
+                             ".npz)")
     parser.add_argument("--conf-thre", type=float, default=-0.1)
     parser.add_argument("--nms-thre", type=float, default=-0.1)
     parser.add_argument("--batch-size", type=int, default=-1,
@@ -80,11 +81,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
 
     state_dict = None
     if args.checkpoint:
-        if args.checkpoint.endswith(".ckpt"):
-            raise SystemExit(
-                f"error: {args.checkpoint} is a JAX package checkpoint; the "
-                "port has no reader for it yet. Export it as a reference "
-                "state dict (.pth.tar) and pass that.")
         state_dict = load_weights(args.checkpoint)
         logger.info(f"loaded weights {args.checkpoint}")
     else:
