@@ -132,6 +132,27 @@ line:
                counts; ``python -m yolov4_tpu_torch.detect`` on a 20-frame
                cv2-written clip.
 
+ 14. classify — the classifier pretrainer (classify/, darknet_pretrain,
+               run after phase 12): (a) two Adam steps of the WIDTH 0.25
+               CSPDarknet53 classifier (4 classes, 64x64, batch 4) in
+               float64 on the card against the CPU (TRAIN_F64_TOL_*,
+               agreed_cpu_run); (b) the same with every BN a SyncBatchNorm2d
+               in two ranks on the one card over gloo against the same two
+               ranks on the CPU: the ranks equal bit for bit, the running
+               statistics not a per-replica run's; (c) the full-width step
+               (1000 classes, crop 256, batch 128, halved while it does not
+               fit; bf16 autocast, f32 weights, Adam): 3 warm steps, 20
+               timed with CUDA events (ms, img/s, peak memory, share of the
+               bf16 peak); (d) ``python -m yolov4_tpu_torch.darknet_pretrain``
+               at full width on a synthetic ImageFolder (4 classes, 32 train
+               and 8 val JPEGs each, -b 16, 2 epochs; beside (b)): finite,
+               falling loss, metrics.jsonl and both checkpoints, ``-e
+               --resume model_best.pth`` reproducing the best epoch's
+               Prec@1; K1 and K2 0 launches on all of it (in this process,
+               each rank and each CLI process); then model_best.pth as
+               MODEL.BACKBONE_PRETRAINED of the full-width detector (its
+               backbone equal) and one 608/b2 Predictor batch.
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -2405,6 +2426,427 @@ def phase_serve(cfg_cls, build_model, detect_mod, nms_cuda, csp_cuda, plain,
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the classifier pretrainer (classify/, darknet_pretrain)
+
+CLS_CLASSES = 4                 # (a), (b) and the CLI's ImageFolder
+CLS_SMALL = 64                  # (a), (b): WIDTH 0.25 at 64x64, batch 4
+CLS_BATCH, CLS_CROP = 128, 256  # (c): the reference's per-GPU batch, crop
+CLS_TRAIN_PER_CLASS, CLS_VAL_PER_CLASS = 32, 8
+CLS_LIMIT_S = 600               # (b)'s ranks and (d)'s CLI, each
+# (d) runs ``python -m yolov4_tpu_torch.darknet_pretrain`` as -m does
+# (runpy, with sys.argv and __main__ set), then prints this process's K1 and
+# K2 counts as its last line
+CLS_CLI = (
+    "import json, runpy, sys\n"
+    "from yolov4_tpu_torch.ops import csp_cuda, nms_cuda\n"
+    "sys.argv[0] = 'darknet_pretrain'\n"
+    "runpy.run_module('yolov4_tpu_torch.darknet_pretrain',"
+    " run_name='__main__', alter_sys=True)\n"
+    "print(json.dumps({'k1': nms_cuda.greedy_nms_mask_cuda.launches,"
+    " 'k2': csp_cuda.fused_csp_stage_cuda.launches}))\n")
+
+
+def cls_api():
+    """The port's classifier functions phase 14 drives."""
+    from yolov4_tpu_torch.classify.trainer import (classifier_lr_schedule,
+                                                   make_cls_train_step,
+                                                   normalize_images)
+    from yolov4_tpu_torch.models.darknet import CSPDarknet53
+    from yolov4_tpu_torch.models.layers import convert_sync_bn
+    return SimpleNamespace(
+        CSPDarknet53=CSPDarknet53, convert_sync_bn=convert_sync_bn,
+        classifier_lr_schedule=classifier_lr_schedule,
+        make_cls_train_step=make_cls_train_step,
+        normalize_images=normalize_images)
+
+
+def cls_two_steps(device, seed, batch_seed=21, dist=None, sync_bn=False):
+    """Two Adam steps (lr 0.01 then 0.02: the warmup of base lr 0.05) of the
+    WIDTH 0.25 classifier in float64 at 64x64, batch 4, from init ``seed``
+    with BN re-drawn (redraw_bn), on ``device``; over the process group
+    ``dist`` with its BNs synchronised when ``sync_bn``: (losses, initial
+    state_dict, final state_dict) on the CPU, as train_two_steps.
+
+    Adam's eps is 1e-2 here, as in tests/test_torch_classify.py: at the
+    Trainer's 1e-8 each element steps by ~lr whatever its gradient's size,
+    so the gate would read the relative error of the gradients that cancel
+    to nearly 0 (on the card: 3.5e-10 of a tensor's largest change from the
+    reference init, 1.95e-9 with BN re-drawn, against a 1e-9 tolerance)
+    instead of the step's."""
+    c = cls_api()
+    model = c.CSPDarknet53(CLS_CLASSES, 0.25, 0.25,
+                           generator=torch.Generator().manual_seed(seed))
+    model.load_state_dict(redraw_bn(model.state_dict(),
+                                    np.random.default_rng(seed)))
+    model = model.to(device=device, dtype=torch.float64)
+    if sync_bn:
+        c.convert_sync_bn(model, dist)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999),
+                           eps=1e-2)
+    step = c.make_cls_train_step(model, opt, c.classifier_lr_schedule(0.05, 1),
+                                 dist=dist, sync_bn=sync_bn)
+    from yolov4_tpu_torch.parallel.train_step import TrainState
+    rng = np.random.default_rng(batch_seed)
+    state = TrainState()
+    losses = []
+    for _ in range(2):
+        u8 = torch.from_numpy(rng.integers(0, 256, (4, CLS_SMALL, CLS_SMALL,
+                                                    3), np.uint8))
+        labels = torch.from_numpy(rng.integers(0, CLS_CLASSES, 4))
+        state = step(state, u8.to(device), labels.to(device))
+        losses.append(float(state.loss))
+    return losses, init, {k: v.detach().cpu() for k, v in
+                          model.state_dict().items()}
+
+
+def cls_param_names():
+    return dict(cls_api().CSPDarknet53(CLS_CLASSES, 0.25,
+                                       0.25).named_parameters())
+
+
+def check_f64(res, label):
+    if (res["loss_rel"] > TRAIN_F64_TOL_LOSS
+            or res["worst_tensor_rel"] > TRAIN_F64_TOL_UPDATE_TENSOR
+            or res["worst_buffer_rel"] > TRAIN_F64_TOL_BUF or res["unequal"]):
+        raise AssertionError(f"{label}: card against CPU out of tolerance: "
+                             f"{res}")
+    return {k: res[k] for k in (
+        "card_loss", "cpu_loss", "loss_rel", "update_l2_rel", "worst_tensor",
+        "worst_tensor_rel", "worst_buffer_rel")}
+
+
+def phase_cls_f64(report):
+    """14a: two float64 classifier steps on the card against the CPU
+    (agreed_cpu_run), TRAIN_F64_TOL_*."""
+    cpu, cpu_runs = agreed_cpu_run(lambda: cls_two_steps("cpu", TRAIN_SEED))
+    res = check_f64(compare_train_runs(
+        cpu, cls_two_steps("cuda", TRAIN_SEED), cls_param_names()),
+        "float64 classifier step")
+    res["cpu_runs"] = cpu_runs
+    log(f"[classify] WIDTH 0.25 f64 at {CLS_SMALL}, batch 4, Adam, 2 steps: "
+        f"card vs CPU (its runs until two agree: {cpu_runs}) loss "
+        f"{res['card_loss']} vs {res['cpu_loss']} ({res['loss_rel']:.3g} "
+        f"apart, tol {TRAIN_F64_TOL_LOSS}), worst tensor {res['worst_tensor']}"
+        f" {res['worst_tensor_rel']:.3g} of its largest change (tol "
+        f"{TRAIN_F64_TOL_UPDATE_TENSOR}), BN buffers "
+        f"{res['worst_buffer_rel']:.3g} (tol {TRAIN_F64_TOL_BUF})")
+    report["classify"]["f64"] = res
+
+
+def cls_sync_task(rank):
+    """14b on one rank: two float64 SyncBN steps over the group on the card,
+    then on the CPU (agreed_cpu_run), and the same two per replica on the
+    card; K1's and K2's counts set to 0 just before and read just after."""
+    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
+    from yolov4_tpu_torch.parallel import dist
+    group = dist.world_group()
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+
+    def run(device, sync):
+        return cls_two_steps(device, TRAIN_SEED, batch_seed=21 + rank,
+                             dist=group, sync_bn=sync)
+    out = {"cuda": run("cuda", True)}
+    out["cpu"], out["cpu_runs"] = agreed_cpu_run(lambda: run("cpu", True),
+                                                 group=group)
+    out["replica"] = run("cuda", False)
+    out["k1"] = nms_cuda.greedy_nms_mask_cuda.launches
+    out["k2"] = csp_cuda.fused_csp_stage_cuda.launches
+    return out
+
+
+DDP_TASKS["cls_sync"] = cls_sync_task
+
+
+def check_cls_sync(ranks, report):
+    """14b: each rank's card run against its CPU run within
+    TRAIN_F64_TOL_*; the ranks' states equal bit for bit on the card and on
+    the CPU; the synchronised running statistics not the per-replica
+    run's."""
+    params = cls_param_names()
+    res = []
+    for rank, out in enumerate(ranks):
+        res.append(check_f64(compare_train_runs(out["cpu"], out["cuda"],
+                                                params),
+                             f"two-rank SyncBN step, rank {rank}"))
+        res[-1]["cpu_runs"] = out["cpu_runs"]
+    for dev in ("cuda", "cpu"):
+        a, b = (out[dev][2] for out in ranks)
+        unequal = [k for k, v in a.items() if not torch.equal(v, b[k])]
+        if unequal:
+            raise AssertionError(f"two-rank SyncBN step on {dev}: ranks "
+                                 f"differ in {unequal[:5]}")
+    synced, replica = ranks[0]["cuda"][2], ranks[0]["replica"][2]
+    gap = max(float((v - replica[k]).abs().max() / v.abs().max())
+              for k, v in synced.items() if k.endswith("running_var"))
+    if not gap > 1e3 * TRAIN_F64_TOL_BUF:
+        raise AssertionError(f"SyncBN running variances {gap} from the "
+                             "per-replica run's")
+    launches = [(r["k1"], r["k2"]) for r in ranks]
+    seconds = max(r["seconds"] for r in ranks)
+    log(f"[classify] SyncBN in 2 ranks on the one card over gloo, WIDTH 0.25"
+        f" f64 at {CLS_SMALL}, batch 4 per rank, 2 Adam steps, against the "
+        f"same 2 ranks on the CPU (runs until two agree: "
+        f"{[r['cpu_runs'] for r in res]}): loss "
+        f"{[r['loss_rel'] for r in res]} apart, worst tensor "
+        f"{[r['worst_tensor_rel'] for r in res]} of its largest change, BN "
+        f"buffers {[r['worst_buffer_rel'] for r in res]}; the ranks equal bit"
+        f" for bit; running variances {gap:.3g} (relative) from the "
+        f"per-replica run's; K1/K2 per rank {launches}; {seconds:.1f}s")
+    report["classify"]["sync_bn"] = {"ranks": res, "replica_gap": gap,
+                                     "launches": launches,
+                                     "seconds": seconds}
+    return launches
+
+
+def phase_cls_timed(report, smi):
+    """14c: the full-width step (1000 classes, crop 256, batch CLS_BATCH,
+    halved while it does not fit), bf16 autocast over float32 weights,
+    Adam: 3 warm steps, then 20 between CUDA events."""
+    from yolov4_tpu_torch.parallel.train_step import TrainState
+    from yolov4_tpu_torch.tools.profile_train import forward_conv_flops
+    c = cls_api()
+    batch = CLS_BATCH
+    while True:
+        model = step = None
+        try:
+            model = c.CSPDarknet53(1000).to("cuda").to(
+                memory_format=torch.channels_last)
+            opt = torch.optim.Adam(model.parameters(), lr=0.0,
+                                   betas=(0.9, 0.999), eps=1e-8)
+            step = c.make_cls_train_step(
+                model, opt, c.classifier_lr_schedule(0.1 * batch / 256, 10000),
+                torch.bfloat16)
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            u8 = torch.randint(0, 256, (batch, CLS_CROP, CLS_CROP, 3),
+                               dtype=torch.uint8, device="cuda",
+                               generator=gen)
+            labels = torch.randint(0, 1000, (batch,), device="cuda",
+                                   generator=gen)
+            state = TrainState()
+            for _ in range(3):
+                state = step(state, u8, labels)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            del model, step
+            torch.cuda.empty_cache()
+            log(f"[classify] batch {batch} does not fit; halving")
+            batch //= 2
+    params = sum(p.numel() for p in model.parameters())
+    flops = 3.0 * forward_conv_flops(model, c.normalize_images(u8[:1])) * batch
+    torch.cuda.reset_peak_memory_stats()
+    n = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        state = step(state, u8, labels)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    share = flops / (step_ms * 1e-3) / PEAK_BF16_OPS
+    loss = float(state.loss)
+    if not np.isfinite(loss):
+        raise AssertionError(f"full-width classifier step loss {loss}")
+    log(f"[classify] {smi}: CSPDarknet53 {params:,} params, 1000 classes, "
+        f"crop {CLS_CROP}, batch {batch}, bf16 autocast, f32 weights, Adam: "
+        f"{step_ms:.3f} ms per step ({batch * 1e3 / step_ms:.1f} img/s), "
+        f"peak memory {peak_gib:.2f} GiB, {flops / 1e12:.3f} TFLOP per step "
+        f"({share:.2%} of the bf16 dense peak), loss {loss:.4f}")
+    del model, step, state, u8
+    torch.cuda.empty_cache()
+    report["classify"]["timed"] = dict(
+        params=params, batch=batch, crop=CLS_CROP, step_ms=step_ms,
+        img_s=batch * 1e3 / step_ms, peak_memory_gib=peak_gib,
+        train_tflop=flops / 1e12, flop_share_bf16=share, card=smi)
+
+
+def write_imagefolder(root, seed=13):
+    """CLS_CLASSES classes told apart by their colour (red, green, blue,
+    grey, with per-pixel noise and a random tint), CLS_TRAIN_PER_CLASS
+    train and CLS_VAL_PER_CLASS val JPEGs each at 288x320, written with
+    PIL: the CLI's short run can learn them."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    colours = np.array([[200, 40, 40], [40, 200, 40], [40, 40, 200],
+                        [120, 120, 120]])
+    for split, n in (("train", CLS_TRAIN_PER_CLASS),
+                     ("val", CLS_VAL_PER_CLASS)):
+        for cls in range(CLS_CLASSES):
+            d = Path(root) / split / f"class{cls}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                img = (colours[cls] + rng.integers(-30, 30, 3)
+                       + rng.integers(-40, 40, (288, 320, 3)))
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    d / f"{i}.jpg", quality=90)
+
+
+def start_cls_cli(work, args, name):
+    """The CLI (CLS_CLI) with ``args``, its output to <name>.log."""
+    import os
+    logf = open(work / f"{name}.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", CLS_CLI, *args], cwd=ROOT,
+                            stdout=logf, stderr=subprocess.STDOUT,
+                            env=dict(os.environ))
+    logf.close()
+    return proc, time.time()
+
+
+def finish_cls_cli(work, cli, name, deadline):
+    """Wait for a CLI run; returns (its log, its (K1, K2) launches,
+    seconds). Fails unless it exited 0."""
+    rc, seconds = wait_cli(cli, deadline)
+    text = (work / f"{name}.log").read_text()
+    if rc != 0:
+        raise AssertionError(f"darknet_pretrain ({name}) exited {rc} after "
+                             f"{seconds:.1f}s:\n{text[-3000:]}")
+    counts = json.loads(text.strip().splitlines()[-1])
+    return text, (counts["k1"], counts["k2"]), seconds
+
+
+def check_cls_cli(work, text, seconds, report):
+    """14d's training checks: finite losses, the second epoch's mean below
+    the first's; metrics.jsonl and both checkpoints written."""
+    import os
+    out = work / "out"
+    with open(out / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows if r["kind"] == "train"]
+    evals = [r for r in rows if r["kind"] == "eval"]
+    n_steps = 2 * CLS_CLASSES * CLS_TRAIN_PER_CLASS // 16
+    written = sorted(os.listdir(out))
+    if not {"checkpoint.pth", "model_best.pth", "metrics.jsonl",
+            "stdout.log"} <= set(written) or len(evals) != 2:
+        raise AssertionError(f"darknet_pretrain wrote {written}, eval "
+                             f"records {evals}\n{text[-3000:]}")
+    half = n_steps // 2
+    if not (len(losses) == n_steps and np.isfinite(losses).all()
+            and np.mean(losses[half:]) < np.mean(losses[:half])):
+        raise AssertionError(f"darknet_pretrain losses {losses}")
+    img_s = [r["img_s"] for r in rows if r["kind"] == "train"]
+    log(f"[classify] python -m yolov4_tpu_torch.darknet_pretrain, full "
+        f"width, {CLS_CLASSES} classes, {CLS_CLASSES * CLS_TRAIN_PER_CLASS} "
+        f"train / {CLS_CLASSES * CLS_VAL_PER_CLASS} val JPEGs, -b 16, 2 "
+        f"epochs: {seconds:.1f}s, loss {' '.join(f'{v:.3f}' for v in losses)}"
+        f", prec1 {[e['prec1'] for e in evals]}, img/s (print-freq 1) "
+        f"{img_s}, wrote {written}")
+    report["classify"]["cli"] = {"seconds": seconds, "losses": losses,
+                                 "evals": evals, "img_s": img_s}
+
+
+def check_cls_detector(work, cfg_cls, build_model, nms_cuda, csp_cuda,
+                       report):
+    """14d: model_best.pth through MODEL.BACKBONE_PRETRAINED into the
+    full-width detector (the Trainer's strict load), its backbone equal to
+    the checkpoint's; one Predictor batch of two 608 images, finite rows,
+    K1's and K2's launches counted. Returns them."""
+    from yolov4_tpu_torch.engine.predictor import Predictor
+    from yolov4_tpu_torch.utils.checkpoint import load_pretrained_backbone
+    from yolov4_tpu_torch.utils.convert import load_weights
+    cfg = cfg_cls.from_dict({"MODEL": {
+        "BACKBONE_PRETRAINED": str(work / "out" / "model_best.pth")}})
+    model = build_model(cfg, device="cuda", train=True)
+    load_pretrained_backbone(model, cfg["MODEL"]["BACKBONE_PRETRAINED"])
+    best = load_weights(cfg["MODEL"]["BACKBONE_PRETRAINED"])
+    unequal = [k for k, v in model.backbone.state_dict().items()
+               if not torch.equal(v.cpu(), best["backbone." + k])]
+    if unequal:
+        raise AssertionError(f"backbone differs from the classifier's: "
+                             f"{unequal[:5]}")
+    pred = Predictor(cfg, state_dict=model.state_dict(), batch_size=2,
+                     device="cuda")
+    images = np.random.default_rng(4).integers(0, 256, (2, 608, 608, 3),
+                                               np.uint8)
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    det, valid = pred(images)
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    if det.shape != (2, 100, 7) or not np.isfinite(det).all() or k1 != 1:
+        raise AssertionError(f"detector with the classifier's backbone: "
+                             f"{det.shape}, finite {np.isfinite(det).all()}"
+                             f", K1 {k1}")
+    log(f"[classify] model_best.pth as BACKBONE_PRETRAINED: "
+        f"{len(model.backbone.state_dict())} backbone tensors equal; one "
+        f"608/b2 Predictor batch: {int(valid.sum())} detections, K1 {k1}, "
+        f"K2 {k2}")
+    del model, pred
+    torch.cuda.empty_cache()
+    report["classify"]["detector"] = {"detections": int(valid.sum()),
+                                      "k1": k1, "k2": k2}
+    return k1, k2
+
+
+def phase_classify(cfg_cls, build_model, nms_cuda, csp_cuda, smi, report):
+    """Phase 14: (a) and (c) in this process; then (b)'s two ranks beside
+    (d)'s CLI training run, then (d)'s ``-e`` run and detector checks.
+    K1's and K2's counts are set to 0 just before the classifier path and
+    read just after it: in this process, in each rank and in each CLI
+    process. Returns {run: (K1, K2)}, the detector batch apart."""
+    import os
+    t0 = time.time()
+    report["classify"] = {}
+    work = ROOT / "runs" / "chip_smoke_classify"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    phase_cls_f64(report)
+    phase_cls_timed(report, smi)
+    launches = {"in_process": (nms_cuda.greedy_nms_mask_cuda.launches,
+                               csp_cuda.fused_csp_stage_cuda.launches)}
+
+    write_imagefolder(work / "imagenet")
+    tasks = [("cls_sync", {})]
+    deadline = time.monotonic() + CLS_LIMIT_S
+    cli = start_cls_cli(work, [
+        str(work / "imagenet"), "-b", "16", "--epochs", "2", "--num-classes",
+        str(CLS_CLASSES), "--lr", "0.8", "--print-freq", "1", "--output-dir",
+        str(work / "out")], "train")
+    try:
+        ranks = join_ranks(start_ranks(tasks, work), tasks, work, deadline)
+    finally:
+        text, launches["cli"], seconds = finish_cls_cli(work, cli, "train",
+                                                        deadline)
+    launches["sync_bn"] = tuple(map(sum, zip(*check_cls_sync(
+        ranks["cls_sync"], report))))
+    check_cls_cli(work, text, seconds, report)
+
+    best = json.loads((work / "out" / "model_best.pth.meta.json").read_text())
+    cli = start_cls_cli(work, [
+        str(work / "imagenet"), "-e", "--resume",
+        str(work / "out" / "model_best.pth"), "-b", "16", "--num-classes",
+        str(CLS_CLASSES), "--output-dir", str(work / "eval")], "eval")
+    text, launches["cli_eval"], seconds = finish_cls_cli(
+        work, cli, "eval", time.monotonic() + CLS_LIMIT_S)
+    got = [line.split("Prec@1 ")[1].split()[0] for line in text.splitlines()
+           if "Prec@1" in line]
+    if got != [f"{best['prec1']:.3f}"]:
+        raise AssertionError(f"-e --resume model_best.pth gave Prec@1 {got},"
+                             f" the best epoch {best['prec1']:.3f}")
+    log(f"[classify] -e --resume model_best.pth: Prec@1 {got[0]} = the best "
+        f"epoch's ({best['epoch'] + 1}); {seconds:.1f}s")
+    report["classify"]["eval_prec1"] = float(got[0])
+
+    bad = {run: n for run, n in launches.items() if n != (0, 0)}
+    if bad:
+        raise AssertionError(f"K1/K2 launched on the classifier path: {bad}")
+    report["classify"]["launches"] = launches
+    detector = check_cls_detector(work, cfg_cls, build_model, nms_cuda,
+                                  csp_cuda, report)
+    shutil.rmtree(work, ignore_errors=True)
+    report["classify"]["seconds"] = time.time() - t0
+    log(f"[classify] K1/K2 on the classifier path {launches}; phase 14 in "
+        f"{report['classify']['seconds']:.1f}s")
+    return detector
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2470,6 +2912,10 @@ def main() -> int:
                              report)
     ddp_k1, ddp_k2 = (sum(run[i] for run in ddp_launches.values())
                       for i in (0, 1))
+    # the classifier path launches neither kernel (checked inside); the
+    # detector built on its backbone runs one Predictor batch
+    cls_k1, cls_k2 = phase_classify(Config, build_model, nms_cuda, csp_cuda,
+                                    smi, report)
     kernels = {"kernels": [{
         "name": "greedy_nms_mask",
         "route": "cuda",
@@ -2478,14 +2924,17 @@ def main() -> int:
         # the detection path's batches, the serving phase's (live runtime,
         # artifact runtime, video), the Trainer's validations (the three
         # Trainer runs and their resumes; of them, the runs with
-        # AUGMENTATION.DEVICE), and phase 12's data-parallel validations
-        "launches": launches + serve_k1 + trainer_k1 + ddp_k1,
+        # AUGMENTATION.DEVICE), phase 12's data-parallel validations and
+        # phase 14's detector batch on the classifier's backbone
+        "launches": launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1,
         "launches_in_serving": serve_k1,
         "launches_in_serving_by_run": {k: v[0] for k, v in
                                        serve_launches.items()},
         "launches_in_trainer": trainer_k1,
         "launches_in_device_aug_trainer": device_k1,
         "launches_in_ddp": ddp_k1,
+        "launches_in_classifier": 0,
+        "launches_in_classifier_backbone_detector": cls_k1,
         "max_abs_err": err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2507,14 +2956,16 @@ def main() -> int:
         "source": "yolov4_tpu_torch/csrc/csp.cu",
         "replaces": "yolov4_tpu/ops/csp_pallas.py:344",
         # val's batches, the serving phase's, the Trainer's validations
-        # and phase 12's
-        "launches": k2_launches + serve_k2 + trainer_k2 + ddp_k2,
+        # and phase 12's (phase 14's detector batch runs without
+        # PALLAS_CSP)
+        "launches": k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2,
         "launches_in_serving": serve_k2,
         "launches_in_serving_by_run": {k: v[1] for k, v in
                                        serve_launches.items()},
         "launches_in_trainer": trainer_k2,
         "launches_in_device_aug_trainer": device_k2,
         "launches_in_ddp": ddp_k2,
+        "launches_in_classifier": 0,
         "max_abs_err": max(r["max_abs_err"] for r in stages),
         "ms": sum(r["ms"] for r in stages),
         "device_ms": sum(r["device_ms"] for r in stages),

@@ -41,7 +41,9 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "train", "utils.msgpack", "utils.export", "serve",
                  "serve.metrics", "serve.batcher", "serve.server",
                  "serve.artifact", "serve.__main__",
-                 "tools.export_serving"):
+                 "tools.export_serving", "classify", "classify.data",
+                 "classify.trainer", "models.darknet", "models.layers",
+                 "darknet_pretrain"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]
     assert len(result["modules"]) >= 30
     assert result["forbidden"] == []

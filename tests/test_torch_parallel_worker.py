@@ -1,4 +1,5 @@
-"""Rank processes for tests/test_torch_parallel.py (no tests here).
+"""Rank processes for tests/test_torch_parallel.py and
+tests/test_torch_sync_bn.py (no tests here).
 
 ``run_rank`` is the target of each spawned process: it joins a gloo group
 of ``world`` ranks through a rendezvous file, runs one task and saves what
@@ -228,5 +229,77 @@ def resume_task(rank, world, root, cfg_raw, ckpt):
             "ap": ap, "ap50": ap50, "sd": _state(trainer.model)}
 
 
+def sync_bn_task(rank, world, sd_path, imgs, labels, num_classes, base_lr,
+                 adam_eps, conv_sd_path, conv_x, val_root, val_kw):
+    """SyncBN over the group: two classifier steps (make_cls_train_step
+    with every BatchNorm a SyncBatchNorm2d), this rank on its slice of the
+    global batch, with the (rank-averaged) gradients of the first update;
+    then one train forward of a single ConvBNAct on this rank's slice of
+    ``conv_x``, with SyncBN and per replica (statistics rank-averaged);
+    then the classifier Trainer's validation of ``val_root`` over the
+    ranks, with the weights of ``sd_path``."""
+    from yolov4_tpu_torch.classify.trainer import (ClassifierTrainer,
+                                                   classifier_lr_schedule,
+                                                   make_cls_train_step)
+    from yolov4_tpu_torch.models.darknet import CSPDarknet53
+    from yolov4_tpu_torch.models.layers import (ConvBNAct, SyncBatchNorm2d,
+                                                convert_sync_bn)
+    from yolov4_tpu_torch.parallel import create_train_state, dist
+
+    def load(model, path):
+        with np.load(path) as sd:
+            model.load_state_dict({k: torch.from_numpy(sd[k])
+                                   for k in sd.files})
+        return model
+
+    group = dist.world_group()
+    model = convert_sync_bn(load(CSPDarknet53(num_classes, 0.25, 0.25),
+                                 sd_path), group)
+    n_sync = sum(isinstance(m, SyncBatchNorm2d) for m in model.modules())
+    opt = torch.optim.Adam(model.parameters(), lr=0.0, eps=adam_eps)
+    grads = {}
+    real_step = opt.step
+
+    def capture(*args, **kwargs):
+        if not grads:
+            grads.update({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+        return real_step(*args, **kwargs)
+
+    opt.step = capture
+    step = make_cls_train_step(model, opt,
+                               classifier_lr_schedule(base_lr, 1),
+                               dist=group, sync_bn=True)
+    state = create_train_state(model)
+    b = imgs.shape[1] // world
+    losses = []
+    for u8, lab in zip(imgs, labels):
+        state = step(state, torch.from_numpy(u8[rank * b:(rank + 1) * b]),
+                     torch.from_numpy(lab[rank * b:(rank + 1) * b]))
+        losses.append(float(state.loss))
+    out = {"losses": losses, "grads1": grads, "sd2": _state(model),
+           "n_sync": n_sync}
+
+    b = conv_x.shape[0] // world
+    x = torch.from_numpy(conv_x[rank * b:(rank + 1) * b])
+    for name, sync in (("conv_sync", True), ("conv_replica", False)):
+        conv = load(ConvBNAct(3, 8, 3, act="linear"), conv_sd_path)
+        if sync:
+            convert_sync_bn(conv, group)
+        conv.train()
+        conv(x)
+        if not sync:
+            dist.all_reduce_mean_([conv.norm.running_mean,
+                                   conv.norm.running_var], group)
+        out[name] = _state(conv)
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            out[name + "_autocast_dtype"] = str(conv(x).dtype)
+
+    trainer = ClassifierTrainer(val_root, evaluate_only=True,
+                                resume=sd_path, **val_kw)
+    out["val"] = trainer.fit(evaluate_only=True)
+    return out
+
+
 TASKS = {"step": step_task, "skip": skip_task, "validate": validate_task,
-         "fit": fit_task, "resume": resume_task}
+         "fit": fit_task, "resume": resume_task, "sync_bn": sync_bn_task}

@@ -1,15 +1,18 @@
-"""CSPDarknet53 detection backbone (reference yolo/model/yolov4.py:26-47),
-returning the stride-8/16/32 pyramid levels. NCHW throughout."""
+"""CSPDarknet53: the detection backbone (reference yolo/model/yolov4.py:
+26-47), returning the stride-8/16/32 pyramid levels, and the ImageNet
+classifier on it (reference darknet/darknet.py:141-193). NCHW
+throughout."""
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from yolov4_tpu_torch.models.layers import (ConvBNAct, CSPDownSample,
-                                            CSPDownSample0)
+                                            CSPDownSample0, init_weights)
 
 
 def scale_channels(ch: int, width: float) -> int:
@@ -60,3 +63,49 @@ class Backbone(nn.Module):
         x4 = self.stage4(x3)
         x5 = self.stage5(x4)
         return x3, x4, x5
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# truncated-normal initialisers divide by it so that the draws keep the
+# asked-for variance
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``lecun_normal`` on a torch ``[out, in]`` Linear weight:
+    a normal truncated at two standard deviations, variance 1 / fan_in."""
+    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_NORMAL_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+class CSPDarknet53(nn.Module):
+    """ImageNet classifier: ``backbone`` (the detector's, with the same
+    state_dict keys, so its weights load as MODEL.BACKBONE_PRETRAINED),
+    then a global average pool and the Linear ``classifier`` (the JAX
+    package's models/darknet.py CSPDarknet53). Logits ``[B,
+    num_classes]`` from an NCHW float input.
+
+    The backbone takes the reference init and the classifier flax's
+    (lecun-normal weight, zero bias), drawn from ``generator`` (seed 0 when
+    None). ``s2d`` and ``wpack`` are the JAX package's TPU lowerings, the
+    same function as the plain path: accepted and ignored."""
+
+    def __init__(self, num_classes: int = 1000, width: float = 1.0,
+                 depth: float = 1.0, s2d=None, wpack=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        del s2d, wpack
+        self.backbone = Backbone(width=width, depth=depth)
+        self.classifier = nn.Linear(scale_channels(1024, width), num_classes)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_weights(self.backbone, generator)
+        lecun_normal_(self.classifier.weight, generator)
+        nn.init.zeros_(self.classifier.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x5 = self.backbone(x)[2]
+        return self.classifier(x5.mean(dim=(2, 3)))

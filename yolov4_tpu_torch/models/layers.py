@@ -1,5 +1,7 @@
 """Building-block layers (NCHW), ported from the JAX package's
-models/layers.py: Mish, ConvBNAct, ResBlock, CSPDownSample0, CSPDownSample.
+models/layers.py: Mish, ConvBNAct, ResBlock, CSPDownSample0, CSPDownSample,
+and BatchNorm with its statistics over the ranks of a process group
+(``SyncBatchNorm2d``, flax's ``BatchNorm(axis_name=...)``).
 
 A CSP stage built with ``fused`` runs its eval forward's body (everything
 after the base conv) through the K2 wrapper (ops/csp_cuda.py) with BN
@@ -22,6 +24,7 @@ from contextlib import contextmanager
 from typing import Callable, Dict, Iterator, Optional, Union
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
@@ -29,6 +32,9 @@ from yolov4_tpu_torch.ops.csp import (fold_conv_bn, pack_weights,
                                       packed_dtype)
 from yolov4_tpu_torch.ops.csp_cuda import (fused_csp_stage_cuda,
                                            fused_csp_supported)
+from yolov4_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +89,110 @@ class BatchNorm2d(nn.BatchNorm2d):
             kept = self.running_var * (1.0 - self.momentum)
             self.running_var.copy_(torch.lerp(kept, blended, (n - 1) / n))
         return y
+
+
+def _group_size(group: Optional[tdist.ProcessGroup]) -> int:
+    """The number of ranks in ``group`` (the default group when None); 1
+    without one."""
+    if not (tdist.is_available() and tdist.is_initialized()):
+        return 1
+    return tdist.get_world_size(group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the ranks whose backward sums the gradients over them too:
+    the transpose of JAX's ``psum``, so that each rank's gradient takes in
+    what its batch did to every rank's loss through the shared
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        tdist.all_reduce(x, op=tdist.ReduceOp.SUM, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        tdist.all_reduce(grad, op=tdist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
+class SyncBatchNorm2d(BatchNorm2d):
+    """BatchNorm whose train-mode statistics are those of the batch of all
+    ranks of ``group`` (the default group when None): flax's
+    ``BatchNorm(axis_name=...)`` with its fast variance (flax 0.12
+    ``_compute_stats``). In at least float32, each rank's per-channel mean
+    and mean of squares are averaged over the ranks in one all-reduce of
+    the two stacked, var = max(0, E[x^2] - E[x]^2) (biased), the input is
+    normalized with eps, and the running statistics become 0.9 ra + 0.1
+    batch. The gradient flows through the all-reduce. For equal shards the
+    mean of the ranks' means is the global batch's.
+
+    The output has the input's dtype, as BatchNorm2d's under autocast; the
+    state_dict keys and the eval path are BatchNorm2d's. In a group of one
+    rank (or with no group) it warns when built and is BatchNorm2d, as the
+    JAX package's trainer on a one-device mesh.
+
+    ``torch.nn.SyncBatchNorm`` is another function: its running variance
+    is the unbiased one, and it refuses CPU tensors."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1,
+                 group: Optional[tdist.ProcessGroup] = None):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.group = group
+        self.world = _group_size(group)
+        if self.world <= 1:
+            logger.warning("SyncBatchNorm2d in a group of one rank: "
+                           "per-replica BatchNorm")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.world > 1):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        with torch.autocast(x.device.type, enabled=False):
+            xc = x.to(torch.promote_types(x.dtype, torch.float32))
+            dims = (0, 2, 3)
+            stats = torch.stack([xc.mean(dims), xc.square().mean(dims)])
+            stats = _AllReduceSum.apply(stats, self.group) / self.world
+            mean, meansq = stats[0], stats[1]
+            var = torch.clamp(meansq - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(
+                    mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(
+                    var.to(self.running_var.dtype), alpha=m)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = ((xc - mean[:, None, None]) * mul[:, None, None]
+                 + self.bias[:, None, None])
+        return y.to(x.dtype)
+
+
+def convert_sync_bn(module: nn.Module,
+                    group: Optional[tdist.ProcessGroup] = None) -> nn.Module:
+    """Every BatchNorm2d of ``module`` replaced in place by a
+    SyncBatchNorm2d over ``group`` holding the same parameters and
+    statistics, on its device in its dtype; returns ``module``. In a group of
+    one rank it warns and changes nothing."""
+    if _group_size(group) <= 1:
+        logger.warning("convert_sync_bn with one rank: no-op (per-replica "
+                       "BatchNorm)")
+        return module
+    for parent in list(module.modules()):
+        for name, child in list(parent.named_children()):
+            if type(child) is not BatchNorm2d:
+                continue
+            sync = SyncBatchNorm2d(child.num_features, child.eps,
+                                   child.momentum, group)
+            sync.to(device=child.weight.device, dtype=child.weight.dtype)
+            sync.load_state_dict(child.state_dict())
+            sync.train(child.training)
+            setattr(parent, name, sync)
+    return module
 
 
 class ConvBNAct(nn.Module):
