@@ -132,6 +132,30 @@ line:
                counts; ``python -m yolov4_tpu_torch.detect`` on a 20-frame
                cv2-written clip.
 
+ 15. int8    — int8 serving (MODEL.QUANT, run after phase 13), on phase
+               7's weights: (a) every distinct int8 product shape of the
+               608/b16 forward (span full with the direct-u8 stem, whose
+               27 taps pad to 32) on its real input: ops/int8.int8_conv
+               (torch._int_mm on an im2col) bit-equal to int8_conv_plain
+               on the card, timed beside _int_mm alone and cuDNN's bf16
+               conv of the shape, with its bound and share of the int8
+               peak; (b) the full-width forward at 608/b2 in int8 and
+               int8_static (one calibration, the CPU's), spans late and
+               full (full with the u8 stem), in bf16 on the card and
+               float32 on the CPU: the card's int8-vs-bf16 error within
+               INT8_TOL_VS_CPU of the CPU's int8-vs-float32 error; (c) int8
+               products a forward equal to the int8 sites, K2 2 (late +
+               PALLAS_CSP) or 0 (full), K1 1 a batch; (d) Predictor.run at
+               608/b16 with PALLAS_CSP for none, int8 and int8_static,
+               late and full (and full with the u8 stem), per call and
+               device ms (a spin queued ahead); (e) an int8_static
+               ServingRuntime (608 and 416 sharing one model, span late):
+               64 requests, each bucket calibrated on its own first batch,
+               every response equal to the direct predictor's rows, the
+               608 bucket exported and bit-identical to the live program;
+               (f) ``python -m yolov4_tpu_torch.val --quant int8`` on
+               phase 8's synthetic COCO.
+
  14. classify — the classifier pretrainer (classify/, darknet_pretrain,
                run after phase 12): (a) two Adam steps of the WIDTH 0.25
                CSPDarknet53 classifier (4 classes, 64x64, batch 4) in
@@ -154,12 +178,15 @@ line:
                backbone equal) and one 608/b2 Predictor batch.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+``{"kernels": [...], "library_products": [...]}`` (K1 and K2, then the
+int8 product, a library call) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -258,12 +285,12 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3,
-            queue_ahead: bool = False) -> float:
+            queue_ahead: bool = False, spin_cycles: int = 4_000_000) -> float:
     """Median time of one call of ``fn``, from CUDA events. Between the
     events the card also idles while the host enqueues the call; with
-    ``queue_ahead`` a ~2 ms spin kernel runs first, so that the call is
-    enqueued before the card reaches it and the events time its kernels
-    alone (device time)."""
+    ``queue_ahead`` a spin kernel of ``spin_cycles`` (~2 ms by default)
+    runs first, so that the call is enqueued before the card reaches it
+    and the events time its kernels alone (device time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -272,7 +299,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if queue_ahead:
-            torch.cuda._sleep(4_000_000)
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         end.record()
@@ -2427,6 +2454,455 @@ def phase_serve(cfg_cls, build_model, detect_mod, nms_cuda, csp_cuda, plain,
 
 
 # --------------------------------------------------------------------------
+# Phase 15: int8 serving (MODEL.QUANT int8 / int8_static, ops/int8.py)
+
+PEAK_INT8_OPS = 1979e12   # dense int8 tensor cores, H100 SXM data sheet
+# (b) The card's int8 forward in bfloat16 against its bfloat16 forward may
+# be this much further apart than the CPU's int8 forward in float32 from
+# its float32 forward (raw head maps, mean and max |difference|): the card
+# rounds every dequantized activation to bfloat16 (2^-9 relative) on top
+# of int8's per-tensor step (1/254 of the abs-max), and its conv weights
+# are bfloat16 before the fold. The max also gets one bfloat16 ulp of the
+# largest output: each of the two card forwards stores its head maps in
+# bfloat16, half an ulp each.
+INT8_TOL_VS_CPU = 1.5
+# (b)'s cases: (QUANT, QUANT_SPAN, QUANT_STEM); the stem case takes uint8
+INT8_CASES = (("int8", "late", False), ("int8", "full", False),
+              ("int8_static", "late", False), ("int8_static", "full", True))
+# (d)'s Predictor configurations, PALLAS_CSP on
+INT8_RUNS = (("none", "late", False), ("int8", "late", False),
+             ("int8", "full", False), ("int8_static", "late", False),
+             ("int8_static", "full", False), ("int8_static", "full", True))
+# a spin of ~150 ms queued ahead of a whole Predictor.run, longer than its
+# enqueue, so that the events time the card alone (device ms)
+RUN_SPIN_CYCLES = 300_000_000
+INT8_SERVE_REQUESTS = 64
+
+
+def int8_cfg(cfg_cls, quant, span="late", stem=False, dtype="bfloat16",
+             pallas=False):
+    return cfg_cls.from_dict({"MODEL": {
+        "QUANT": quant, "QUANT_SPAN": span, "QUANT_STEM": stem,
+        "COMPUTE_DTYPE": dtype, "PALLAS_CSP": pallas}})
+
+
+def int8_weights(cfg_cls, build_model):
+    """Phase 7's weights: the seed-0 init with BN re-drawn."""
+    return redraw_bn(build_model(int8_cfg(cfg_cls, "none", dtype="float32"),
+                                 device="cpu").state_dict(),
+                     np.random.default_rng(3))
+
+
+@contextmanager
+def spy_int8(layers_mod, seen):
+    """Record the first (xq, wq) of every distinct int8 product shape the
+    model runs inside the block, and how often each shape runs."""
+    orig = layers_mod.int8_conv
+
+    def spy(xq, wq, stride=1, padding=0, pad_value=0):
+        key = (tuple(xq.shape), tuple(wq.shape), stride, padding, pad_value)
+        if key not in seen:
+            seen[key] = [xq.clone(), wq.clone(), 0]
+        seen[key][2] += 1
+        return orig(xq, wq, stride, padding, pad_value)
+
+    layers_mod.int8_conv = spy
+    try:
+        yield
+    finally:
+        layers_mod.int8_conv = orig
+
+
+def int8_bound(xq, wq, ho, wo):
+    """(ops, bound_ms, bound_by) of one product: 2 M K N int8 operations
+    over the int8 peak against x and w read and the int32 output written
+    once over HBM's rate."""
+    b, _, _, ci = xq.shape
+    co, kh, kw, _ = wq.shape
+    m, k = b * ho * wo, kh * kw * ci
+    ops = 2.0 * m * k * co
+    nbytes = xq.numel() + wq.numel() + 4 * m * co
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return ops, max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                            else "bytes")
+
+
+def phase_int8_products(cfg_cls, build_model, int8_mod, layers_mod, sd,
+                        report):
+    """(a) every distinct int8 product shape of the 608/b16 forward (span
+    full with the direct-u8 stem: every shape of either span) on its real
+    input: bit-equal to the plain version on the card, timed beside
+    ``_int_mm`` alone and cuDNN's bf16 conv of the same shape."""
+    import torch.nn.functional as F
+    model = build_model(int8_cfg(cfg_cls, "int8", "full", True),
+                        device="cuda")
+    model.load_state_dict(sd)
+    model = model.eval().to(memory_format=torch.channels_last)
+    x = torch.randint(0, 256, (16, 3, 608, 608), dtype=torch.uint8,
+                      device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(5))
+    seen = {}
+    with torch.inference_mode(), spy_int8(layers_mod, seen):
+        model(x.contiguous(memory_format=torch.channels_last))
+    del model
+    torch.cuda.empty_cache()
+    rows = []
+    with torch.inference_mode():
+        for (xs, ws, stride, pad, pv), (xq, wq, count) in seen.items():
+            got = int8_mod.int8_conv(xq, wq, stride, pad, pv)
+            want = int8_mod.int8_conv_plain(xq, wq, stride, pad, pv)
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8_conv {xs} x {ws} s{stride}: "
+                                     f"{int((got != want).sum())} int32 "
+                                     "sums differ from the plain version's")
+            co, kh, kw, ci = ws
+            kk = kh * kw * ci
+            kp = -(-kk // int8_mod.ALIGN) * int8_mod.ALIGN
+            a = (xq.reshape(-1, ci) if kh == 1 and stride == 1 and kp == kk
+                 else int8_mod.im2col(xq, kh, kw, stride, pad, pv, width=kp))
+            wt = F.pad(wq.reshape(co, kk), (0, kp - kk, 0, (-co) % 8))
+            xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            ho, wo = got.shape[1], got.shape[2]
+            ops, bound_ms, bound_by = int8_bound(xq, wq, ho, wo)
+            row = dict(
+                x=list(xs), w=list(ws), stride=stride, padding=pad,
+                pad_value=pv, k_padded=kp, per_forward=count,
+                ms=cuda_ms(lambda: int8_mod.int8_conv(xq, wq, stride, pad,
+                                                      pv), iters=10),
+                device_ms=cuda_ms(lambda: int8_mod.int8_conv(
+                    xq, wq, stride, pad, pv), iters=10, queue_ahead=True),
+                int_mm_ms=cuda_ms(lambda: torch._int_mm(a, wt.t()),
+                                  iters=10, queue_ahead=True),
+                plain_ms=cuda_ms(lambda: int8_mod.int8_conv_plain(
+                    xq, wq, stride, pad, pv), iters=3, warmup=1),
+                cudnn_bf16_ms=cuda_ms(lambda: F.conv2d(
+                    xb, wb, stride=stride, padding=pad), iters=10,
+                    queue_ahead=True),
+                bound_ms=bound_ms, bound_by=bound_by, tops=ops * 1e-12)
+            row["peak_share"] = ops / (row["device_ms"] * 1e-3) / PEAK_INT8_OPS
+            row["int_mm_peak_share"] = (ops / (row["int_mm_ms"] * 1e-3)
+                                        / PEAK_INT8_OPS)
+            rows.append(row)
+            log(f"[int8] {xs} x {ws} s{stride} p{pad}/{pv} (K {kk}->{kp}, "
+                f"{count}x a forward): bit-equal; {row['ms']:.4f} ms, device "
+                f"{row['device_ms']:.4f} (_int_mm {row['int_mm_ms']:.4f}), "
+                f"plain {row['plain_ms']:.3f}, cuDNN bf16 "
+                f"{row['cudnn_bf16_ms']:.4f}; bound {bound_ms:.4f} ms by "
+                f"{bound_by}; {100 * row['peak_share']:.2f}% of the int8 "
+                f"peak (_int_mm {100 * row['int_mm_peak_share']:.2f}%)")
+            del a, wt, xb, wb, got, want
+    del seen
+    torch.cuda.empty_cache()
+    per_fwd = lambda key: sum(r[key] * r["per_forward"] for r in rows)
+    out = dict(shapes=rows, sites=sum(r["per_forward"] for r in rows),
+               **{f"forward_{k}": per_fwd(k) for k in (
+                   "ms", "device_ms", "int_mm_ms", "plain_ms",
+                   "cudnn_bf16_ms", "bound_ms")})
+    log(f"[int8] {len(rows)} distinct shapes, {out['sites']} products a "
+        f"608/b16 forward (full span, u8 stem): device "
+        f"{out['forward_device_ms']:.3f} ms (_int_mm "
+        f"{out['forward_int_mm_ms']:.3f}), cuDNN bf16 "
+        f"{out['forward_cudnn_bf16_ms']:.3f}, bound "
+        f"{out['forward_bound_ms']:.4f} ms")
+    report["int8_products"] = out
+    return out
+
+
+def phase_int8_vs_cpu(cfg_cls, build_model, int8_mod, sd, report):
+    """(b) the full-width forward at 608/b2 in both modes and spans on the
+    card in bf16 against the CPU in float32, int8_static on one
+    calibration (the CPU's); (c) the card's int8 products per forward
+    equal to the int8 site count."""
+    from yolov4_tpu_torch.models.layers import (quant_entries, quant_scope,
+                                                quant_sites)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 3, 608, 608),
+                                      dtype=np.uint8))
+    cal = torch.from_numpy(rng.integers(0, 256, (2, 3, 608, 608),
+                                        dtype=np.uint8))
+
+    def model_for(quant, span, stem, device):
+        m = build_model(int8_cfg(cfg_cls, quant, span, stem,
+                                 "bfloat16" if device == "cuda"
+                                 else "float32"), device=device)
+        m.load_state_dict(sd)
+        m.eval()
+        return (m.to(memory_format=torch.channels_last) if device == "cuda"
+                else m)
+
+    def maps(m, inp, state=None):
+        with torch.inference_mode(), quant_scope(state):
+            out = m(inp.to(next(m.parameters()).device).contiguous(
+                memory_format=torch.channels_last), decode=False)
+            return torch.cat([o.float().flatten() for o in out]).cpu()
+
+    base = {dev: maps(model_for("none", "late", False, dev), x)
+            for dev in ("cpu", "cuda")}
+    rows = []
+    for quant, span, stem in INT8_CASES:
+        t0 = time.time()
+        cpu_m, gpu_m = (model_for(quant, span, stem, d)
+                        for d in ("cpu", "cuda"))
+        raw = cpu_state = gpu_state = None
+        if quant == "int8_static":
+            raw = {}
+            with torch.inference_mode(), quant_scope(raw, recording=True):
+                cpu_m(cal, decode=False)
+            cpu_state = quant_entries(cpu_m, raw)
+            gpu_state = quant_entries(gpu_m, raw)
+        want = maps(cpu_m, x, cpu_state)
+        int8_mod.int8_conv.launches = 0
+        got = maps(gpu_m, x, gpu_state)
+        launches = int8_mod.int8_conv.launches
+        sites = len(quant_sites(gpu_m))
+        if launches != sites:
+            raise AssertionError(f"{quant}/{span}: {launches} int8 products "
+                                 f"in a forward of {sites} int8 sites")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{quant}/{span}: non-finite card output")
+        e_gpu, e_cpu = (got - base["cuda"]).abs(), (want - base["cpu"]).abs()
+        row = dict(quant=quant, span=span, stem=stem, sites=sites,
+                   launches=launches,
+                   card_vs_bf16_mean=float(e_gpu.mean()),
+                   card_vs_bf16_max=float(e_gpu.max()),
+                   cpu_vs_f32_mean=float(e_cpu.mean()),
+                   cpu_vs_f32_max=float(e_cpu.max()),
+                   card_vs_cpu_mean=float((got - want).abs().mean()),
+                   seconds=time.time() - t0)
+        rows.append(row)
+        log(f"[int8] 608/b2 {quant} {span}{' +u8 stem' if stem else ''}: "
+            f"{sites} sites, {launches} products; int8 vs bf16 on the card "
+            f"mean {row['card_vs_bf16_mean']:.4g} max "
+            f"{row['card_vs_bf16_max']:.4g}, int8 vs f32 on the CPU mean "
+            f"{row['cpu_vs_f32_mean']:.4g} max {row['cpu_vs_f32_max']:.4g} "
+            f"({row['seconds']:.1f}s)")
+        row["bf16_ulp"] = 2.0 ** (math.floor(math.log2(
+            float(base["cuda"].abs().max()))) - 7)
+        for k, extra in (("mean", 0.0), ("max", row["bf16_ulp"])):
+            if row[f"card_vs_bf16_{k}"] > (INT8_TOL_VS_CPU
+                                           * row[f"cpu_vs_f32_{k}"] + extra):
+                raise AssertionError(
+                    f"{quant}/{span}: the card's int8 error ({k}) "
+                    f"{row[f'card_vs_bf16_{k}']:.4g} exceeds "
+                    f"{INT8_TOL_VS_CPU}x the CPU's "
+                    f"{row[f'cpu_vs_f32_{k}']:.4g} (+ {extra:.4g})")
+        del cpu_m, gpu_m, cpu_state, gpu_state, raw
+        torch.cuda.empty_cache()
+    report["int8_vs_cpu"] = rows
+    return rows
+
+
+def phase_int8_runs(cfg_cls, Predictor, int8_mod, nms_cuda, csp_cuda, sd,
+                    report):
+    """(c) launches per forward and (d) Predictor.run at 608/b16 with
+    PALLAS_CSP on: K1 once, K2 twice (span late: stages 1-2 fused, stage 3
+    int8) or never (span full), int8 products equal to the sites."""
+    from yolov4_tpu_torch.models.layers import quant_sites
+    rng = np.random.default_rng(9)
+    images = [rng.integers(0, 256, (16, 608, 608, 3), dtype=np.uint8)
+              for _ in range(2)]
+    rows = []
+    for quant, span, stem in INT8_RUNS:
+        pred = Predictor(int8_cfg(cfg_cls, quant, span, stem, pallas=True),
+                         state_dict=sd, img_size=608, batch_size=16,
+                         device="cuda")
+        pred.warmup()
+        dets, valid = pred(images[0])      # int8_static calibrates on it
+        if not (np.isfinite(dets).all() and valid.any()):
+            raise AssertionError(f"{quant}/{span}: detections not finite "
+                                 "or none")
+        x = pred.upload(images[1])
+        torch.cuda.synchronize()
+        nms_cuda.greedy_nms_mask_cuda.launches = 0
+        csp_cuda.fused_csp_stage_cuda.launches = 0
+        int8_mod.int8_conv.launches = 0
+        pred.run(x)
+        torch.cuda.synchronize()
+        k1 = nms_cuda.greedy_nms_mask_cuda.launches
+        k2 = csp_cuda.fused_csp_stage_cuda.launches
+        n8 = int8_mod.int8_conv.launches
+        sites = len(quant_sites(pred.model))
+        want_k2 = 3 if quant == "none" else (2 if span == "late" else 0)
+        if (k1, k2, n8) != (1, want_k2, sites):
+            raise AssertionError(f"{quant}/{span}: K1 {k1}, K2 {k2}, int8 "
+                                 f"{n8} launches a batch (want 1, "
+                                 f"{want_k2}, {sites})")
+        t0 = time.perf_counter()
+        pred.run(x)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        run_ms = cuda_ms(lambda: pred.run(x), iters=10)
+        device_ms = cuda_ms(lambda: pred.run(x), iters=10, queue_ahead=True,
+                            spin_cycles=RUN_SPIN_CYCLES)
+        rows.append(dict(quant=quant, span=span, stem=stem, sites=sites,
+                         k1=k1, k2=k2, int8=n8, run_ms=run_ms,
+                         device_ms=device_ms, enqueue_ms=enqueue_ms,
+                         device_img_s=16e3 / device_ms))
+        log(f"[int8] Predictor 608/b16 PALLAS_CSP {quant} {span}"
+            f"{' +u8 stem' if stem else ''}: K1 {k1}, K2 {k2}, int8 {n8} "
+            f"a batch; run {run_ms:.3f} ms, device {device_ms:.3f} ms "
+            f"({16e3 / device_ms:.1f} img/s), host enqueue "
+            f"{enqueue_ms:.1f} ms")
+        del pred, x
+        torch.cuda.empty_cache()
+    report["int8_runs"] = rows
+    return rows
+
+
+def phase_int8_serve(cfg_cls, Predictor, int8_mod, nms_cuda, csp_cuda, sd,
+                     report):
+    """(e) int8_static serving: buckets 608 and 416 sharing one model, each
+    calibrating on its own first batch; every response against the direct
+    predictor; the 608 bucket exported and held bit-identical."""
+    from yolov4_tpu_torch.models.layers import quant_sites
+    from yolov4_tpu_torch.serve import ServingRuntime
+    from yolov4_tpu_torch.utils.export import export_serving, load_serving
+    work = ROOT / "runs" / "chip_smoke_int8"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = int8_cfg(cfg_cls, "int8_static", "late", pallas=True)
+    runtime = ServingRuntime(cfg, state_dict=sd, sizes=list(SERVE_SIZES),
+                             batch_size=16, conf_thre=0.25, device="cuda")
+    preds = {s: b.predictor for s, b in runtime.buckets.items()}
+    sites = len(quant_sites(preds[608].model))
+    runtime.start(warmup=True)
+    if any(p.quant_ready for p in preds.values()):
+        raise AssertionError("a bucket counts warmup's seed scales as "
+                             "calibrated")
+    logs = {s: BatchLog(p) for s, p in preds.items()}
+    try:
+        reqs = serve_requests(INT8_SERVE_REQUESTS, seed=31)
+        int8_mod.int8_conv.launches = 0
+        bodies, m, k1, k2, conv = run_traffic(
+            runtime, reqs, (nms_cuda, csp_cuda), "int8_static runtime")
+        n8 = int8_mod.int8_conv.launches
+        batches = m["batches"]
+        # each bucket's first batch also runs its calibration pass (the
+        # forward without the NMS)
+        forwards = batches + len(preds)
+        if (k1, k2, n8) != (batches, 2 * forwards, sites * forwards):
+            raise AssertionError(f"int8 serving: K1 {k1}, K2 {k2}, int8 {n8} "
+                                 f"launches for {batches} batches")
+        for size, log_ in logs.items():
+            preds[size].dispatch = log_.dispatch
+            ref = Predictor(cfg, img_size=size, batch_size=16, device="cuda",
+                            model=preds[size].model)
+            ref.calibrate(log_.batches[0])
+            got, want = preds[size].quant_state, ref.quant_state
+            if not all(torch.allclose(got[k]["amax"], want[k]["amax"],
+                                      rtol=1e-6, atol=0) for k in want):
+                raise AssertionError(f"bucket {size}: scales are not its own "
+                                     "first batch's")
+        a, b = preds[608].quant_state, preds[416].quant_state
+        if all(torch.equal(a[k]["amax"], b[k]["amax"]) for k in a):
+            raise AssertionError("the two buckets share their scales")
+        wants = [None] * len(reqs)
+        for size in SERVE_SIZES:
+            idx = [i for i, r in enumerate(reqs) if r[1] == size]
+            for i, want in zip(idx, expected_responses(
+                    runtime, preds[size], logs[size].batches,
+                    [reqs[i] for i in idx])):
+                wants[i] = want
+        m["detections"] = check_responses(bodies, reqs, wants, "int8")
+        log(f"[int8] each bucket calibrated on its own first batch; every "
+            f"response equals the direct predictor's rows "
+            f"({m['detections']} detections)")
+        path = work / "m608_int8.y4t"
+        t0 = time.time()
+        header = export_serving(preds[608], str(path))
+        export_s = time.time() - t0
+        art = load_serving(str(path))
+        imgs = np.stack([runtime.preprocess(img, 608)[0]
+                         for img in serve_images(32, 16)])
+        got = art.predict(imgs)
+        want = preds[608].fetch_local(preds[608].dispatch(imgs))
+        for g, w, name in zip(got, want, header["outputs"]):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"int8_static artifact {name} differs "
+                                     "from the live predictor's")
+        mb = path.stat().st_size / 1e6
+        log(f"[int8] 608 int8_static bucket exported in {export_s:.1f}s "
+            f"({mb:.1f} MB, quant {header['quant']}), bit-identical to the "
+            f"live predictor ({int(got[1].sum())} valid rows)")
+        del art
+    finally:
+        runtime.close()
+        shutil.rmtree(work, ignore_errors=True)
+    report["int8_serve"] = dict(m, k1=k1, k2=k2, int8=n8, sites=sites,
+                                export_s=export_s, artifact_mb=mb)
+    del runtime, preds
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+def phase_int8_val(val_mod, coco_ids, int8_mod, nms_cuda, csp_cuda, sites,
+                   report):
+    """(f) ``python -m yolov4_tpu_torch.val --quant int8`` on phase 8's
+    synthetic COCO, span late (``sites`` int8 sites) with PALLAS_CSP."""
+    work = ROOT / "runs" / "chip_smoke_int8_val"
+    shutil.rmtree(work, ignore_errors=True)
+    n_images, batch = 32, 16
+    write_val2017(work, coco_ids, n_images)
+    cfg_path = work / "val.cfg"
+    cfg_path.write_text("MODEL:\n  PALLAS_CSP: true\n  QUANT_SPAN: late\n")
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    int8_mod.int8_conv.launches = 0
+    t0 = time.time()
+    ap, ap50 = val_mod.main([str(work), "-c", str(cfg_path), "--batch-size",
+                             str(batch), "--conf-thre", "0.001", "--quant",
+                             "int8"])
+    seconds = time.time() - t0
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    n8 = int8_mod.int8_conv.launches
+    n_batches = n_images // batch
+    shutil.rmtree(work, ignore_errors=True)
+    if not (np.isfinite(ap) and np.isfinite(ap50) and 0.0 <= ap <= ap50 <= 1.0):
+        raise AssertionError(f"int8 val: AP {ap}, AP50 {ap50}")
+    if (k1, k2, n8) != (n_batches, 2 * n_batches, sites * n_batches):
+        raise AssertionError(f"int8 val: K1 {k1}, K2 {k2}, int8 {n8} "
+                             f"launches in {n_batches} batches")
+    log(f"[int8] val --quant int8 on {n_images} images: AP {ap:.5f}, AP50 "
+        f"{ap50:.5f}; K1 {k1}, K2 {k2}, int8 {n8} launches in {n_batches} "
+        f"batches; {seconds:.1f}s")
+    report["int8_val"] = dict(ap=ap, ap50=ap50, k1=k1, k2=k2, int8=n8,
+                              seconds=seconds)
+    return k1, k2
+
+
+def phase_int8(cfg_cls, build_model, Predictor, val_mod, coco_ids,
+               nms_cuda, csp_cuda, smi, report):
+    """Phase 15; returns (K1, K2, int8) launches of its runs."""
+    from yolov4_tpu_torch.models import layers as layers_mod
+    from yolov4_tpu_torch.ops import int8 as int8_mod
+    t_phase = time.time()
+    sd = int8_weights(cfg_cls, build_model)
+    products = phase_int8_products(cfg_cls, build_model, int8_mod,
+                                   layers_mod, sd, report)
+    phase_int8_vs_cpu(cfg_cls, build_model, int8_mod, sd, report)
+    runs = phase_int8_runs(cfg_cls, Predictor, int8_mod, nms_cuda, csp_cuda,
+                           sd, report)
+    serve_k1, serve_k2 = phase_int8_serve(cfg_cls, Predictor, int8_mod,
+                                          nms_cuda, csp_cuda, sd, report)
+    sites_late = next(r["sites"] for r in runs
+                      if (r["quant"], r["span"]) == ("int8", "late"))
+    val_k1, val_k2 = phase_int8_val(val_mod, coco_ids, int8_mod, nms_cuda,
+                                    csp_cuda, sites_late, report)
+    k1 = sum(r["k1"] for r in runs) + serve_k1 + val_k1
+    k2 = sum(r["k2"] for r in runs) + serve_k2 + val_k2
+    n8 = (sum(r["launches"] for r in report["int8_vs_cpu"])
+          + sum(r["int8"] for r in runs) + report["int8_serve"]["int8"]
+          + report["int8_val"]["int8"])
+    report["int8_phase"] = dict(card=smi, seconds=time.time() - t_phase,
+                                k1=k1, k2=k2, int8=n8)
+    log(f"[int8] {smi}: phase 15 in {report['int8_phase']['seconds']:.1f}s")
+    return k1, k2, n8, products
+
+
+# --------------------------------------------------------------------------
 # Phase 14: the classifier pretrainer (classify/, darknet_pretrain)
 
 CLS_CLASSES = 4                 # (a), (b) and the CLI's ImageFolder
@@ -2896,6 +3372,9 @@ def main() -> int:
                                  csp_cuda, fused_csp_stage_plain, smi, report)
     serve_k1, serve_k2 = (sum(run[i] for run in serve_launches.values())
                           for i in (0, 1))
+    int8_k1, int8_k2, int8_n, int8_products = phase_int8(
+        Config, build_model, Predictor, val_mod, COCO_CLASS_IDS, nms_cuda,
+        csp_cuda, smi, report)
     train = train_api()
     phase_train_vs_cpu(Config, build_model, train, report)
     phase_train_full(Config, build_model, train, report)
@@ -2924,10 +3403,13 @@ def main() -> int:
         # the detection path's batches, the serving phase's (live runtime,
         # artifact runtime, video), the Trainer's validations (the three
         # Trainer runs and their resumes; of them, the runs with
-        # AUGMENTATION.DEVICE), phase 12's data-parallel validations and
-        # phase 14's detector batch on the classifier's backbone
-        "launches": launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1,
+        # AUGMENTATION.DEVICE), phase 12's data-parallel validations,
+        # phase 14's detector batch on the classifier's backbone and
+        # phase 15's int8 runs (Predictor, serving, val)
+        "launches": (launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1
+                     + int8_k1),
         "launches_in_serving": serve_k1,
+        "launches_in_int8": int8_k1,
         "launches_in_serving_by_run": {k: v[0] for k, v in
                                        serve_launches.items()},
         "launches_in_trainer": trainer_k1,
@@ -2955,11 +3437,15 @@ def main() -> int:
         "route": "cuda",
         "source": "yolov4_tpu_torch/csrc/csp.cu",
         "replaces": "yolov4_tpu/ops/csp_pallas.py:344",
-        # val's batches, the serving phase's, the Trainer's validations
-        # and phase 12's (phase 14's detector batch runs without
+        # val's batches, the serving phase's, the Trainer's validations,
+        # phase 12's and phase 15's (2 a forward under QUANT_SPAN late,
+        # none under full; phase 14's detector batch runs without
         # PALLAS_CSP)
-        "launches": k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2,
+        "launches": (k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2
+                     + int8_k2),
         "launches_in_serving": serve_k2,
+        "launches_in_int8": int8_k2,
+        "launches_per_int8_forward": {"late": 2, "full": 0},
         "launches_in_serving_by_run": {k: v[1] for k, v in
                                        serve_launches.items()},
         "launches_in_trainer": trainer_k2,
@@ -2984,6 +3470,32 @@ def main() -> int:
         "per_stage": stages,
         "per_stage_416": [r for r in report["serve_k2_416"]
                           if r["dtype"] == "bfloat16"],
+    }], "library_products": [{
+        # not a TPU kernel: the JAX package's int8 product is XLA's
+        # conv_general_dilated (s8 x s8 -> s32), so the port calls
+        # cuBLASLt's int8 GEMM through torch._int_mm; per-forward sums over
+        # the int8 sites of a 608/b16 forward (span full, u8 stem)
+        "name": "int8_conv",
+        "route": "library",
+        "source": "yolov4_tpu_torch/ops/int8.py",
+        "replaces": "yolov4_tpu/models/layers.py:341 (_quant_conv's "
+                    "conv_general_dilated)",
+        "launches": int8_n,
+        "max_abs_err": 0,
+        "ms": int8_products["forward_ms"],
+        "device_ms": int8_products["forward_device_ms"],
+        "int_mm_ms": int8_products["forward_int_mm_ms"],
+        "plain_ms": int8_products["forward_plain_ms"],
+        "bound_ms": int8_products["forward_bound_ms"],
+        "bound_by": ("operations" if all(
+            r["bound_by"] == "operations" for r in int8_products["shapes"])
+            else "bytes"),
+        "library_ms": None,
+        "library_note": "PyTorch has no int8 convolution on CUDA; "
+                        "cudnn_bf16_ms is cuDNN's bf16 conv of each shape",
+        "cudnn_bf16_ms": int8_products["forward_cudnn_bf16_ms"],
+        "sites_per_forward": int8_products["sites"],
+        "per_shape": int8_products["shapes"],
     }]}
     print(json.dumps({"report": report}))
     print(smi)

@@ -48,17 +48,29 @@ def test_tpu_only_keys_are_accepted_and_validated():
 
 @pytest.mark.parametrize("quant", ["int8", "int8_static"])
 def test_quant_loads_and_refuses_to_build(quant):
-    """MODEL.QUANT loads (the JAX package's configs carry it) but no model
-    or Predictor is built with it: int8 is not ported, and bfloat16 in
-    its place would be another function."""
+    """MODEL.QUANT loads (the JAX package's configs carry it) and builds
+    the int8 model: its sites marked with the mode (stages 3-5, neck and
+    the head's hidden convs under QUANT_SPAN late), none under
+    train=True; the Predictor carries the mode. An unknown mode is still
+    refused."""
     from yolov4_tpu_torch.engine.predictor import Predictor
     from yolov4_tpu_torch.models import build_model
+    from yolov4_tpu_torch.models.layers import quant_sites
     cfg = config.Config.from_dict({"MODEL": {"QUANT": quant, "WIDTH": 0.25,
-                                             "DEPTH": 0.25}})
-    for build in (lambda: build_model(cfg, device="cpu"),
-                  lambda: Predictor(cfg, device="cpu")):
-        with pytest.raises(ValueError, match="MODEL.QUANT"):
-            build()
+                                             "DEPTH": 0.25,
+                                             "QUANT_SPAN": "late"}})
+    model = build_model(cfg, device="cpu")
+    sites = quant_sites(model)
+    assert sites and all(s.startswith(("backbone.stage3", "backbone.stage4",
+                                       "backbone.stage5", "neck.", "head."))
+                         for s in sites)
+    assert {m.quant for m in model.modules()
+            if getattr(m, "quant_site", "")} == {quant}
+    assert not quant_sites(build_model(cfg, device="cpu", train=True))
+    assert Predictor(cfg, device="cpu").quant == quant
+    cfg["MODEL"]["QUANT"] = "int4"
+    with pytest.raises(ValueError, match="quant"):
+        build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("letterbox", [False, True])

@@ -1,8 +1,10 @@
 """The port's serving export (utils/export.py, tools/export_serving.py) on
 the CPU: the cases of tests/test_export.py (round trip bit-identical to the
 live predictor, the header contract, the float32 wire, bad files), each
-package refusing the other's file at the magic, and a ``PALLAS_CSP``
-export whose K2 and K1 are the custom ops, their plain versions here.
+package refusing the other's file at the magic, a ``PALLAS_CSP``
+export whose K2 and K1 are the custom ops, their plain versions here, and
+an int8_static export calibrated on ``--calib-images`` whose scales are
+constants of the program.
 
 The artifact is the live predictor's device program (engine/predictor.py's
 ``detection_program``) serialized, so a reloaded artifact must give the
@@ -180,3 +182,25 @@ def test_csp_op_cpu_implementation_is_the_plain_version(c, nb, dtype):
     got = csp_cuda.fused_csp_stage_cuda(x, folded, nb, packed)
     assert csp_cuda.fused_csp_stage_cuda.launches == 0
     assert torch.equal(got, fused_csp_stage_plain(x, folded, nb))
+
+
+def test_cli_int8_static_export_is_the_live_program(tmp_path):
+    """``--quant int8_static --calib-images``: the predictor calibrates on
+    the folder's images, the export bakes its scales in, and --selfcheck
+    holds the reloaded artifact bit-identical to the live predictor."""
+    import cv2
+    import yaml
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        cv2.imwrite(str(calib / f"img{i}.jpg"),
+                    rng.integers(0, 256, (48, 80, 3), dtype=np.uint8))
+    cfg_path = tmp_path / "small.cfg"
+    cfg_path.write_text(yaml.safe_dump(SMALL))
+    header = export_cli.main([str(tmp_path / "m.y4t"), "--cfg",
+                              str(cfg_path), "--img-size", "64",
+                              "--batch-size", "2", "--device", "cpu",
+                              "--quant", "int8_static", "--calib-images",
+                              str(calib), "--selfcheck"])
+    assert header["quant"] == "int8_static"

@@ -43,6 +43,7 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "serve.artifact", "serve.__main__",
                  "tools.export_serving", "classify", "classify.data",
                  "classify.trainer", "models.darknet", "models.layers",
+                 "ops.int8",
                  "darknet_pretrain"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]
     assert len(result["modules"]) >= 30

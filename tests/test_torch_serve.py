@@ -549,9 +549,11 @@ def test_cli_refuses_mesh_and_int8_and_warns_on_artifact_flags(tmp_path,
         cli.build_runtime(cli.parse_args(["--mesh", "--device", "cpu"]))
     cfg_path = tmp_path / "small.cfg"
     cfg_path.write_text(yaml.safe_dump(SMALL))
-    with pytest.raises(ValueError, match="QUANT"):
-        cli.build_runtime(cli.parse_args(["--cfg", str(cfg_path), "--quant",
-                                          "int8", "--device", "cpu"]))
+    int8 = cli.build_runtime(cli.parse_args(["--cfg", str(cfg_path),
+                                             "--quant", "int8", "--device",
+                                             "cpu"]))
+    assert int8.cfg["MODEL"]["QUANT"] == "int8"
+    assert all(b.predictor.quant == "int8" for b in int8.buckets.values())
     rt = cli.build_runtime(cli.parse_args(["--cfg", str(cfg_path),
                                            "--sizes", "64,32",
                                            "--conf-thre", "-1",

@@ -9,14 +9,17 @@ it sends the eval forward of CSP stages 1-3 through the fused stage kernel
 K2 (ops/csp_cuda.py), with BatchNorm folded into the convs; the default
 stays false.
 
+``MODEL.QUANT`` ("none", "int8", "int8_static") selects int8 serving:
+the eval forward's convs of ``MODEL.QUANT_SPAN`` run s8 x s8 -> s32
+(models/layers.apply_quant), and ``MODEL.QUANT_STEM`` adds the direct-u8
+stem under the JAX package's predicate (which reads ``MODEL.S2D_STEM``).
+
 Keys that only steer TPU lowerings (``MODEL.S2D_STEM``, ``MODEL.WPACK``,
-``MODEL.SPLIT_HEAD``, ``MODEL.QUANT_SPAN/CHAIN/STEM``, ``TEST.S2D_WIRE``,
+``MODEL.SPLIT_HEAD``, ``MODEL.QUANT_CHAIN``, ``TEST.S2D_WIRE``,
 ``TEST.APPROX_TOPK``) are accepted and validated so that every config file
 of the JAX package loads unchanged; the port runs the plain path they all
-reduce to and ignores them. ``MODEL.QUANT`` loads too, but a value other
-than "none" (int8 inference, another function) makes ``build_model``
-raise. ``AUGMENTATION.DEVICE`` selects the on-device augmentation
-(data/device_aug.py).
+reduce to, the same function. ``AUGMENTATION.DEVICE`` selects the
+on-device augmentation (data/device_aug.py).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Usage:
     python -m yolov4_tpu_torch.detect [--cfg configs/yolov4_Tianxiaomo.cfg] \
         [--ckpt weights.pth.tar] --source ./data/images/ \
         [--dest runs/detect/] [--conf-thre 0.2] [--nms-thre 0.5] \
-        [--device cuda]
+        [--quant int8_static] [--device cuda]
 
 Images go through the eval transform in batches, one device program
 (forward + decode + NMS) per batch, and back to the host to be unmapped to
@@ -15,7 +15,8 @@ where the mp4v encoder is missing; the JAX package's ``process_video``).
 Runs on CUDA unless ``--device`` names another device; a missing card is
 an error. Checkpoints are a JAX package ``.ckpt``, reference
 ``.pth``/``.pth.tar``/``.pt`` or ``.npz`` state dicts; without one the
-weights are the reference init from seed 0.
+weights are the reference init from seed 0. ``--quant`` sets
+``MODEL.QUANT``: int8_static calibrates on the first batch.
 """
 
 from __future__ import annotations
@@ -56,6 +57,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--conf-thre", type=float, default=-0.1)
     parser.add_argument("--nms-thre", type=float, default=-0.1)
     parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--quant", choices=("none", "int8", "int8_static"),
+                        default=None,
+                        help="serving quantization mode (default cfg "
+                             "MODEL.QUANT; int8* are not reference-exact; "
+                             "int8_static calibrates on the first batch)")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--letterbox", action="store_true",
                         help="aspect-preserving letterbox preprocessing "
@@ -170,6 +176,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     cfg = load_config(args.cfg)
     if args.letterbox:
         cfg["TEST"]["LETTERBOX"] = True
+    if args.quant is not None:
+        cfg["MODEL"]["QUANT"] = args.quant
     conf_thre = cfg["TEST"]["CONFTHRE"] if args.conf_thre < 0 else args.conf_thre
     nms_thre = cfg["TEST"]["NMSTHRE"] if args.nms_thre < 0 else args.nms_thre
     img_size = cfg["TEST"]["IMGSIZE"]

@@ -15,6 +15,15 @@ host memory behind a CUDA event; ``fetch_local`` waits on that event
 alone, so a fetch never waits behind batches dispatched after it (the
 serving batcher keeps several in flight). Both bind the predictor's card,
 so they may run in any host thread.
+
+With ``MODEL.QUANT`` "int8_static" the predictor owns its calibrated
+scales (the JAX package's "quant" collection): ``calibrate`` records them
+from a batch (they only grow), the first ``dispatch`` calibrates on its
+own batch when nobody did, a change to the weights the scales were
+recorded from (a reload) calibrates again, ``warmup`` runs on seed scales
+it never publishes, and ``quant_state`` publishes the calibrated scales
+for another predictor (or an export) to keep. Predictors sharing one
+model (the serving runtime's buckets) keep scales of their own.
 """
 
 from __future__ import annotations
@@ -28,7 +37,12 @@ import torch
 from torch import nn
 
 from yolov4_tpu_torch.models import build_model
+from yolov4_tpu_torch.models.layers import (ConvBNAct, quant_entries,
+                                            quant_scope)
+from yolov4_tpu_torch.models.yolov4 import quant_mode
 from yolov4_tpu_torch.ops.postprocess import postprocess
+
+QuantState = Dict[str, Dict[str, torch.Tensor]]
 
 
 def pad_batch(images: np.ndarray, batch_size: int) -> np.ndarray:
@@ -57,16 +71,23 @@ def nhwc_to_wire(images: torch.Tensor) -> torch.Tensor:
     return images.permute(0, 3, 1, 2).reshape(images.shape[0], -1)
 
 
+def model_input(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The model's input from an NCHW batch (uint8, or float32 in [0, 1];
+    any strides), channels-last: uint8 normalized by 1/255 unless the
+    model's direct-u8 stem takes it as it is."""
+    takes_uint8 = getattr(model, "takes_uint8", None)
+    if not (takes_uint8 is not None and takes_uint8(x)):
+        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    return x.contiguous(memory_format=torch.channels_last)
+
+
 def detection_forward(model: nn.Module, x: torch.Tensor,
                       settings: Dict) -> Tuple[torch.Tensor, ...]:
-    """An NCHW batch (uint8, normalized by 1/255 here, or float32 in
-    [0, 1]; any strides) -> channels-last input -> forward -> decode ->
+    """An NCHW batch -> ``model_input`` -> forward -> decode ->
     postprocess (K1). Returns (detections, valid[, relevant_count]).
     ``settings``: the keyword arguments of ops/postprocess.postprocess
     after its first two."""
-    x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-    preds = model(x.contiguous(memory_format=torch.channels_last))
-    return postprocess(preds, **settings)
+    return postprocess(model(model_input(model, x)), **settings)
 
 
 def detection_program(model: nn.Module, flat: torch.Tensor, img_size: int,
@@ -78,18 +99,22 @@ def detection_program(model: nn.Module, flat: torch.Tensor, img_size: int,
 
 
 class DetectionProgram(nn.Module):
-    """``detection_program`` with its model and settings bound: what
-    utils/export.py traces."""
+    """``detection_program`` with its model, settings and int8_static
+    scales bound: what utils/export.py traces (the scales become constants
+    of the program)."""
 
-    def __init__(self, model: nn.Module, img_size: int, settings: Dict):
+    def __init__(self, model: nn.Module, img_size: int, settings: Dict,
+                 quant_state: Optional[QuantState] = None):
         super().__init__()
         self.model = model
         self.img_size = img_size
         self.settings = dict(settings)
+        self.quant_state = quant_state
 
     def forward(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return detection_program(self.model, flat, self.img_size,
-                                 self.settings)
+        with quant_scope(self.quant_state):
+            return detection_program(self.model, flat, self.img_size,
+                                     self.settings)
 
 
 @dataclass(frozen=True)
@@ -170,14 +195,17 @@ class Predictor:
     ``model``: an already built and loaded model to share (the serving
     runtime's buckets share one set of weights on the card); ``cfg`` and
     ``state_dict`` then do not build it again. ``device``: None means
-    CUDA.
+    CUDA. ``quant_state``: int8_static scales a calibrated predictor
+    published (``quant_state``), kept for these weights instead of
+    calibrating on the first batch.
     """
 
     def __init__(self, cfg: Dict, state_dict: Optional[Dict] = None,
                  img_size: Optional[int] = None, batch_size: int = 8,
                  conf_thre: Optional[float] = None,
                  nms_thre: Optional[float] = None,
-                 device=None, model: Optional[nn.Module] = None):
+                 device=None, model: Optional[nn.Module] = None,
+                 quant_state: Optional[QuantState] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         if model is None:
@@ -204,6 +232,96 @@ class Predictor:
         self.cat_cap = int(test.get("CAT_CAP", 100))
         self.count_relevant = bool(self.cat_cap
                                    and self.max_dets > self.cat_cap)
+        self.quant = quant_mode(cfg["MODEL"])
+        # int8_static: the calibrated scales with the key of the weights
+        # they were recorded from, and warmup's seed scales (never
+        # published)
+        self._quant: Optional[QuantState] = None
+        self._quant_key = None
+        self._quant_seed: Optional[QuantState] = None
+        self._site_tensors = None
+        if quant_state is not None:
+            self.quant_state = quant_state
+
+    # ------------------------------------------------------------------
+    # int8_static scales
+    def _weights_key(self) -> tuple:
+        """Identifies the weights of the int8 sites: a reload (or any
+        in-place change) gives another key."""
+        if self._site_tensors is None:
+            self._site_tensors = [
+                t for m in self.model.modules()
+                if isinstance(m, ConvBNAct) and m.quant != "none"
+                for t in (m.conv.weight, m.norm.weight, m.norm.bias,
+                          m.norm.running_mean, m.norm.running_var)]
+        return tuple((t.data_ptr(), t._version) for t in self._site_tensors)
+
+    @property
+    def quant_ready(self) -> bool:
+        """Whether the program can run: True unless int8_static scales are
+        missing or were recorded from other weights."""
+        return (self.quant != "int8_static"
+                or (self._quant is not None
+                    and self._quant_key == self._weights_key()))
+
+    @property
+    def quant_state(self) -> Optional[QuantState]:
+        """The calibrated int8_static scales ({site: {amax, wq, sw}}), or
+        None before calibration or after the weights changed; warmup's
+        seed scales are never published here."""
+        if self.quant != "int8_static" or not self.quant_ready:
+            return None
+        return {name: {k: e[k] for k in ("amax", "wq", "sw")}
+                for name, e in self._quant.items()}
+
+    @quant_state.setter
+    def quant_state(self, raw: QuantState) -> None:
+        """Keep a calibrated state (what ``quant_state`` published, or
+        utils/convert.quant_state_from_jax) for the current weights."""
+        if self.quant != "int8_static":
+            raise ValueError(f"MODEL.QUANT {self.quant!r} takes no "
+                             "calibrated state")
+        self._quant = quant_entries(self.model, raw)
+        self._quant_key = self._weights_key()
+
+    @torch.inference_mode()
+    def calibrate(self, images: np.ndarray, mark_ready: bool = True) -> None:
+        """Record int8_static activation scales (each site's running
+        abs-max, and its quantized weights) from a uint8 NHWC batch
+        [B <= batch_size, S, S, 3], padded to batch_size as served. Call it
+        again to take in more batches: the scales only grow. Beyond them
+        values clip to +-127 when served. ``mark_ready=False`` records
+        warmup's seed scales instead. A no-op unless int8_static."""
+        if self.quant != "int8_static":
+            return
+        base = self._quant if (mark_ready and self.quant_ready) else None
+        raw = {} if base is None else {
+            name: {k: e[k] for k in ("amax", "wq", "sw")}
+            for name, e in base.items()}
+        with device_scope(self.device):
+            x = self.upload(images).permute(0, 3, 1, 2)
+            with quant_scope(raw, recording=True):
+                self.model(model_input(self.model, x))
+            state = quant_entries(self.model, raw)
+        if mark_ready:
+            self._quant, self._quant_key = state, self._weights_key()
+        else:
+            self._quant_seed = state
+
+    def _require_calibrated(self) -> None:
+        if not self.quant_ready:
+            raise RuntimeError(
+                "int8_static predictor without calibrated scales for its "
+                "weights: call calibrate() (dispatch() does on its first "
+                "batch)")
+
+    def _scope(self, state: Optional[QuantState] = None):
+        if self.quant != "int8_static":
+            return nullcontext()
+        if state is None:
+            self._require_calibrated()
+            state = self._quant
+        return quant_scope(state)
 
     @property
     def outputs(self) -> list:
@@ -219,24 +337,33 @@ class Predictor:
                     return_relevant_count=self.count_relevant)
 
     def program(self) -> DetectionProgram:
-        """The device program at the current thresholds, as a module."""
-        return DetectionProgram(self.model, self.img_size, self.settings())
+        """The device program at the current thresholds (and int8_static
+        scales), as a module."""
+        self._require_calibrated()
+        return DetectionProgram(self.model, self.img_size, self.settings(),
+                                self._quant if self.quant == "int8_static"
+                                else None)
 
     @torch.inference_mode()
     def run_wire(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The device program on a planar wire device batch [B, 3*S*S].
         Returns device tensors (detections, valid[, relevant_count])."""
-        return detection_program(self.model, flat, self.img_size,
-                                 self.settings())
+        with self._scope():
+            return detection_program(self.model, flat, self.img_size,
+                                     self.settings())
 
     @torch.inference_mode()
-    def run(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def run(self, images: torch.Tensor,
+            quant_state: Optional[QuantState] = None
+            ) -> Tuple[torch.Tensor, ...]:
         """The device program on a uint8 NHWC device batch, through its
         NCHW view (channels-last already, so no layout copy): normalize,
         forward, decode, postprocess. The same function as ``run_wire``
-        on the batch's planar wire."""
-        return detection_forward(self.model, images.permute(0, 3, 1, 2),
-                                 self.settings())
+        on the batch's planar wire. int8_static runs on the calibrated
+        scales, or on ``quant_state`` when given."""
+        with self._scope(quant_state):
+            return detection_forward(self.model, images.permute(0, 3, 1, 2),
+                                     self.settings())
 
     def upload(self, images: np.ndarray) -> torch.Tensor:
         """Pad a uint8 NHWC host batch and copy it to the device."""
@@ -247,19 +374,31 @@ class Predictor:
     def dispatch(self, images: np.ndarray) -> Dispatched:
         """Upload and run without waiting, and enqueue the outputs' copies
         to the host: returns the ``Dispatched`` record for
-        ``fetch_local``."""
+        ``fetch_local``. An int8_static predictor without scales for its
+        weights calibrates on this batch first."""
+        if not self.quant_ready:
+            self.calibrate(images)
         with device_scope(self.device):
-            out = self.run(self.upload(images))
-            return start_fetch(out, self.device)
+            return start_fetch(self.run(self.upload(images)), self.device)
 
     fetch_local = staticmethod(fetch_local)
 
     def warmup(self, dtype=np.uint8) -> None:
         """Run the program once on a zero batch (cuDNN picks its
         algorithms and the kernels are built); ``dtype``, the batcher's
-        wire dtype, must be uint8."""
-        self.fetch_local(self.dispatch(np.zeros(
-            (self.batch_size, self.img_size, self.img_size, 3), dtype)))
+        wire dtype, must be uint8. An int8_static predictor not calibrated
+        yet runs on seed scales from that zero batch, kept out of
+        ``quant_state``: its first real batch still calibrates."""
+        zeros = np.zeros((self.batch_size, self.img_size, self.img_size, 3),
+                         dtype)
+        seed = None
+        if not self.quant_ready:
+            if self._quant_seed is None:
+                self.calibrate(zeros, mark_ready=False)
+            seed = self._quant_seed
+        with device_scope(self.device):
+            out = self.run(self.upload(zeros), seed)
+            self.fetch_local(start_fetch(out, self.device))
 
     def __call__(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Synchronous predict. images: [B, S, S, 3] uint8, B <= batch_size.

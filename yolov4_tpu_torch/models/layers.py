@@ -3,6 +3,15 @@ models/layers.py: Mish, ConvBNAct, ResBlock, CSPDownSample0, CSPDownSample,
 and BatchNorm with its statistics over the ranks of a process group
 (``SyncBatchNorm2d``, flax's ``BatchNorm(axis_name=...)``).
 
+A ConvBNAct given a ``quant`` mode (``apply_quant``, ``MODEL.QUANT``) runs
+its eval forward as the JAX package's int8 conv (``_quant_conv``): BN
+folded in float32, per-output-channel int8 weights, a per-tensor int8
+activation, the s8 x s8 -> s32 product of ops/int8.py, then the
+dequantize and the activation. "int8" takes the activation's abs-max on
+the fly; "int8_static" reads calibrated scales from the state of the
+caller's ``quant_scope`` (a Predictor's own), never from the module, so
+that several predictors can share one model with scales of their own.
+
 A CSP stage built with ``fused`` runs its eval forward's body (everything
 after the base conv) through the K2 wrapper (ops/csp_cuda.py) with BN
 folded into the convs, as the JAX package's ``MODEL.PALLAS_CSP`` path
@@ -20,8 +29,9 @@ BatchNorm scale ~ N(0, 0.01^2), BatchNorm bias zero.
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
-from typing import Callable, Dict, Iterator, Optional, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import torch
 import torch.distributed as tdist
@@ -32,6 +42,9 @@ from yolov4_tpu_torch.ops.csp import (fold_conv_bn, pack_weights,
                                       packed_dtype)
 from yolov4_tpu_torch.ops.csp_cuda import (fused_csp_stage_cuda,
                                            fused_csp_supported)
+from yolov4_tpu_torch.ops.int8 import (activation_scale, int8_conv,
+                                       quantize_activation,
+                                       quantize_weights)
 from yolov4_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -195,10 +208,42 @@ def convert_sync_bn(module: nn.Module,
     return module
 
 
+QUANT_MODES = ("none", "int8", "int8_static")
+
+# the int8_static state of the forward running in this thread: (state,
+# recording) of the innermost quant_scope
+_scope = threading.local()
+
+
+@contextmanager
+def quant_scope(state: Optional[Dict[str, Dict[str, torch.Tensor]]],
+                recording: bool = False) -> Iterator[None]:
+    """Inside the block, int8 ConvBNActs of this thread read their
+    int8_static scales from ``state`` (site name -> entry, see
+    ``ConvBNAct.quant_entry``). With ``recording`` every int8 site runs
+    dynamically and writes into ``state`` its running activation abs-max
+    (the larger of the entry's and this input's) and its quantized
+    weights: the JAX package's calibration pass (``mutable=["quant"]``)."""
+    prev = getattr(_scope, "ctx", None)
+    _scope.ctx = (state, recording)
+    try:
+        yield
+    finally:
+        _scope.ctx = prev
+
+
 class ConvBNAct(nn.Module):
     """Conv2d (symmetric ``(k-1)//2`` padding) + optional BatchNorm
     (eps 1e-5, momentum 0.1, flax's running-variance update) + activation
-    (reference darknet.py:23-58)."""
+    (reference darknet.py:23-58).
+
+    ``quant`` ("none", "int8", "int8_static"; set by ``apply_quant`` on a
+    bias-free conv with BN) makes the eval forward the JAX package's int8
+    conv; a training forward ignores it. ``quant_site`` names the layer's
+    entry in a quant state. ``quant_u8`` (the stem under
+    ``MODEL.QUANT_STEM``) takes a uint8 image as shifted int8 with its
+    /255 folded into the dequantize (the JAX package's direct-u8 stem);
+    a float input then runs the float conv."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, bias: bool = False, bn: bool = True,
@@ -211,16 +256,126 @@ class ConvBNAct(nn.Module):
         self.norm = (BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
                      if bn else None)
         self.act = ACTIVATIONS[act]
+        self.quant = "none"
+        self.quant_site = ""
+        self.quant_u8 = False
 
     @property
     def out_ch(self) -> int:
         return self.conv.out_channels
 
+    @property
+    def quantizable(self) -> bool:
+        return self.norm is not None and self.conv.bias is None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant != "none" and not self.training:
+            if self.quant_u8 and x.dtype == torch.uint8:
+                return self._forward_u8(x)
+            if not self.quant_u8:
+                return self._forward_int8(x)
         x = self.conv(x)
         if self.norm is not None:
             x = self.norm(x)
         return self.act(x)
+
+    @torch.no_grad()
+    def quantized_weights(self):
+        """(wq int8 OHWI, sw float32 [Co], bias float32 [Co]): BN folded
+        into the kernel in float32 (ops/csp.fold_conv_bn's arithmetic),
+        then quantized per output channel."""
+        norm = self.norm
+        s = norm.weight.float() * torch.rsqrt(norm.running_var.float()
+                                              + norm.eps)
+        wq, sw = quantize_weights(self.conv.weight.float()
+                                  * s[:, None, None, None])
+        return wq, sw, norm.bias.float() - norm.running_mean.float() * s
+
+    @torch.no_grad()
+    def quant_entry(self, amax: torch.Tensor, wq: torch.Tensor,
+                    sw: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A site's int8_static entry: the calibrated ``amax``, ``wq``,
+        ``sw``, and what the forward derives from them and the current
+        BN (the activation scale ``sx``, ``scale`` = sx * sw, the folded
+        ``bias``; for the direct-u8 stem sw / 255 and 128 * sum(wq))."""
+        dev = self.conv.weight.device
+        amax, wq, sw = (t.to(dev) for t in (amax, wq, sw))
+        bias = self.quantized_weights()[2]
+        entry = dict(amax=amax, wq=wq, sw=sw, bias=bias)
+        if self.quant_u8:
+            entry.update(scale=sw / 255.0,
+                         shift=128 * wq.to(torch.int32).sum(dim=(1, 2, 3)))
+        else:
+            sx = activation_scale(amax)
+            entry.update(sx=sx, scale=sx * sw)
+        return entry
+
+    def _state(self):
+        """(entry or None, recording) for this forward; an int8_static
+        forward outside a calibrated scope raises."""
+        state, recording = getattr(_scope, "ctx", None) or (None, False)
+        if recording:
+            return None, state
+        if self.quant == "int8":
+            return None, None
+        entry = None if state is None else state.get(self.quant_site)
+        if entry is None:
+            raise RuntimeError(
+                f"int8_static layer {self.quant_site!r} has no calibrated "
+                "scales: run it inside quant_scope with a calibrated state "
+                "(Predictor.calibrate, or the first Predictor.dispatch)")
+        return entry, None
+
+    def _record(self, record, amax: torch.Tensor, wq, sw) -> None:
+        old = record.get(self.quant_site)
+        if old is not None:
+            amax = torch.maximum(old["amax"], amax)
+        record[self.quant_site] = dict(amax=amax, wq=wq, sw=sw)
+
+    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        """_quant_conv: NHWC int8 activation, s8 x s8 -> s32, then
+        (y * (sx * sw) + bias) in float32, cast to x's dtype, activation.
+        Returns the NCHW view of an NHWC tensor (channels-last)."""
+        conv = self.conv
+        xf = x.permute(0, 2, 3, 1).float()
+        entry, record = self._state()
+        if entry is None:
+            wq, sw, bias = self.quantized_weights()
+            amax = xf.abs().amax()
+            if record is not None:
+                self._record(record, amax, wq, sw)
+            sx = activation_scale(amax)
+            scale = sx * sw
+        else:
+            wq, sx, scale, bias = (entry["wq"], entry["sx"], entry["scale"],
+                                   entry["bias"])
+        y = int8_conv(quantize_activation(xf, sx), wq, conv.stride[0],
+                      conv.padding[0])
+        out = (y.float() * scale + bias).to(x.dtype)
+        return self.act(out).permute(0, 3, 1, 2)
+
+    def _forward_u8(self, x: torch.Tensor) -> torch.Tensor:
+        """The direct-u8 stem: x_s8 = x_u8 - 128 with -128 borders, and
+        conv(x_u8 / 255, wq sw) = (sw / 255) (conv(x_s8, wq) + 128 sum(wq)),
+        an exact integer identity, plus the folded bias. The output takes
+        the conv weights' dtype."""
+        conv = self.conv
+        xn = x.permute(0, 2, 3, 1)
+        entry, record = self._state()
+        if entry is None:
+            wq, sw, bias = self.quantized_weights()
+            if record is not None:
+                self._record(record, xn.float().abs().amax(), wq, sw)
+            scale = sw / 255.0
+            shift = 128 * wq.to(torch.int32).sum(dim=(1, 2, 3))
+        else:
+            wq, scale, shift, bias = (entry["wq"], entry["scale"],
+                                      entry["shift"], entry["bias"])
+        xs = (xn.to(torch.int16) - 128).to(torch.int8)
+        y = int8_conv(xs, wq, conv.stride[0], conv.padding[0],
+                      pad_value=-128)
+        out = ((y + shift).float() * scale + bias).to(conv.weight.dtype)
+        return self.act(out).permute(0, 3, 1, 2)
 
 
 class ResBlock(nn.Module):
@@ -261,6 +416,9 @@ class _CSPStage(nn.Module):
             raise ValueError(f"fused must be False, True or 'auto': {fused!r}")
         self.fused = fused
         self.fusable = act == "mish" and shortcut
+        # the body's convs run int8 (apply_quant): the JAX package then
+        # never fuses the stage
+        self.quantized = False
         self._fold_cache = None
         self._frozen = None
 
@@ -307,7 +465,7 @@ class _CSPStage(nn.Module):
         """Whether the body on NCHW ``x`` goes through K2 in an eval
         forward without autograd."""
         on = self.fused is True or (self.fused == "auto" and x.is_cuda)
-        return (on and self.fusable
+        return (on and self.fusable and not self.quantized
                 and fused_csp_supported((x.shape[0], x.shape[2], x.shape[3],
                                          x.shape[1]), self.num_blocks,
                                         x.dtype))
@@ -404,6 +562,61 @@ class CSPDownSample(_CSPStage):
         x1 = self.part1(x)
         x2 = self.part2(x)
         return self.transition(torch.cat([x2, x1], dim=1))
+
+
+def quant_sites(model: nn.Module) -> List[str]:
+    """The names of ``model``'s ConvBNActs that run int8 in an eval
+    forward (the stem's only on a uint8 input)."""
+    return [m.quant_site for m in model.modules()
+            if isinstance(m, ConvBNAct) and m.quant != "none"]
+
+
+def quant_entries(model: nn.Module, raw: Dict[str, Dict[str, torch.Tensor]]
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An int8_static state for ``model``'s int8 sites from their
+    calibrated {amax, wq, sw} (``ConvBNAct.quant_entry``); every site must
+    be in ``raw``."""
+    sites = {m.quant_site: m for m in model.modules()
+             if isinstance(m, ConvBNAct) and m.quant != "none"}
+    missing = set(sites) - set(raw)
+    if missing:
+        raise ValueError(f"quant state lacks {len(missing)} int8 site(s), "
+                         f"e.g. {sorted(missing)[:3]}")
+    return {name: m.quant_entry(raw[name]["amax"], raw[name]["wq"],
+                                raw[name]["sw"])
+            for name, m in sites.items()}
+
+
+def apply_quant(model: nn.Module, quant: str, span: str = "late",
+                u8_stem: bool = False) -> nn.Module:
+    """Mark the int8 sites of a detector or backbone as the JAX package
+    quantizes them (models/darknet.py, neck.py, head.py): every bias-free
+    conv with BN of backbone stages 3-5, the neck and the head's hidden
+    convs; stages 1-2 too with ``span`` "full"; the stem only with
+    ``u8_stem`` (the direct-u8 stem). A stage whose body runs int8 is not
+    fused. ``quant`` "none" clears every mark. Returns ``model``."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}: {quant!r}")
+    if span not in ("late", "full"):
+        raise ValueError(f"quant span must be 'late' or 'full': {span!r}")
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBNAct):
+            local = name.split("backbone.")[-1]
+            if local == "stem":
+                on = u8_stem
+            elif local.startswith(("stage1.", "stage2.")):
+                on = span == "full"
+            else:
+                on = True
+            on = on and quant != "none" and m.quantizable
+            m.quant = quant if on else "none"
+            m.quant_site = name if on else ""
+            m.quant_u8 = on and local == "stem"
+    for m in model.modules():
+        if isinstance(m, _CSPStage):
+            m.quantized = any(c.quant != "none" for c in m.modules()
+                              if isinstance(c, ConvBNAct))
+    return model
 
 
 @torch.no_grad()

@@ -17,6 +17,13 @@ out in bfloat16 (flax's ``dtype=bfloat16, param_dtype=float32``). With
 dtype comes from ``torch.autocast`` in the train step. ``MODEL.PALLAS_CSP``
 sends the eval forward of CSP stages 1-3 through K2 (see
 darknet.Backbone).
+
+``MODEL.QUANT`` int8 / int8_static marks the int8 sites of the eval
+forward (layers.apply_quant, with ``MODEL.QUANT_SPAN`` and the direct-u8
+stem under the JAX package's ``QUANT_STEM`` predicate); ``train=True``
+ignores it, as the JAX package's train path does. ``QUANT_CHAIN`` needs
+nothing: the JAX package's chained program gives the unchained one's
+outputs bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from torch import nn
 from yolov4_tpu_torch.models.darknet import Backbone
 from yolov4_tpu_torch.models.decode import decode_all, masked_anchors
 from yolov4_tpu_torch.models.head import Head
-from yolov4_tpu_torch.models.layers import init_weights
+from yolov4_tpu_torch.models.layers import apply_quant, init_weights
 from yolov4_tpu_torch.models.neck import Neck
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -70,16 +77,45 @@ class YOLOv4(nn.Module):
                          self.neck.pan.module2[-1].out_ch,
                          n_classes=n_classes, width=width)
 
+    def takes_uint8(self, x: torch.Tensor) -> bool:
+        """Whether the stem takes uint8 ``x`` as it is (the direct-u8
+        stem: the JAX package's even-size s2d stem in an eval forward)."""
+        return (self.backbone.stem.quant_u8 and not self.training
+                and x.dtype == torch.uint8
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
     def forward(self, x: torch.Tensor, decode: bool = True):
-        """x: [B, 3, H, W] float in [0, 1], H and W multiples of 32; cast
-        to the parameters' dtype. decode=False returns the three raw NCHW
-        head maps."""
-        x = x.to(self.backbone.stem.conv.weight.dtype)
+        """x: [B, 3, H, W] float in [0, 1] or uint8 (normalized by 1/255
+        here unless the direct-u8 stem takes it), H and W multiples of 32;
+        cast to the parameters' dtype. decode=False returns the three raw
+        NCHW head maps."""
+        if not self.takes_uint8(x):
+            if x.dtype == torch.uint8:
+                x = x.float() / 255.0
+            x = x.to(self.backbone.stem.conv.weight.dtype)
         raws = self.head(*self.neck(*self.backbone(x)))
         if not decode:
             return raws
         grids = [getattr(self, f"anchors_grid{i}") for i in range(3)]
         return decode_all(raws, grids, training=self.training)
+
+
+def quant_mode(model_cfg: Dict) -> str:
+    """MODEL.QUANT as a mode: config booleans map onto "none"/"int8" (the
+    JAX package's ``_qmode``)."""
+    quant = model_cfg.get("QUANT", "none")
+    return {False: "none", True: "int8"}.get(quant, quant)
+
+
+def u8_stem(model_cfg: Dict) -> bool:
+    """The JAX package's direct-u8 stem predicate (engine/predictor.py),
+    less the even size and uint8 input the forward checks: QUANT int8 or
+    int8_static, QUANT_STEM, QUANT_SPAN "full" and the s2d stem
+    (S2D_STEM true or "fused")."""
+    return (quant_mode(model_cfg) != "none"
+            and bool(model_cfg.get("QUANT_STEM", False))
+            and model_cfg.get("QUANT_SPAN", "late") == "full"
+            and model_cfg.get("S2D_STEM", True) in (True, "fused"))
 
 
 def build_model(cfg: Dict, device=None,
@@ -93,11 +129,6 @@ def build_model(cfg: Dict, device=None,
     model_cfg = cfg["MODEL"]
     if model_cfg["TYPE"] != "YOLOv4":
         raise ValueError(f"unsupported MODEL.TYPE {model_cfg['TYPE']!r}")
-    if model_cfg.get("QUANT", "none") != "none":
-        raise ValueError(
-            f"MODEL.QUANT {model_cfg['QUANT']!r}: int8 inference is not "
-            "ported to PyTorch, and running bfloat16 instead would compute "
-            "another function; set MODEL.QUANT to 'none'")
     model = YOLOv4(
         n_classes=model_cfg["N_CLASSES"],
         anchors=model_cfg["ANCHORS"],
@@ -111,6 +142,10 @@ def build_model(cfg: Dict, device=None,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
+    quant = quant_mode(model_cfg)
+    if not train and quant != "none":
+        apply_quant(model, quant, model_cfg.get("QUANT_SPAN", "late"),
+                    u8_stem=u8_stem(model_cfg))
     dtype = (torch.float32 if train
              else DTYPES[model_cfg.get("COMPUTE_DTYPE", "bfloat16")])
     model.to(device=device)

@@ -4,7 +4,7 @@ Usage:
     python -m yolov4_tpu_torch.serve [--cfg configs/yolov4_Tianxiaomo.cfg] \
         [--ckpt model_best.ckpt] [--port 8000] [--sizes 608,416] \
         [--batch-size 16] [--max-wait-ms 8] [--conf-thre 0.25] \
-        [--nms-thre 0.45] [--device cuda]
+        [--nms-thre 0.45] [--quant int8_static] [--device cuda]
     python -m yolov4_tpu_torch.serve --artifact m608.y4t,m416.y4t
 
     curl -s -X POST --data-binary @bus.jpg \
@@ -15,9 +15,10 @@ defaults. Checkpoints are a JAX package ``.ckpt``, a reference
 ``.pth``/``.pth.tar``/``.pt`` or an ``.npz`` state dict; ``--artifact``
 serves exported files (``python -m yolov4_tpu_torch.tools.export_serving``)
 with their baked weights and thresholds. Runs on CUDA unless ``--device``
-names another device; a missing card is an error. ``--mesh`` (multi-card
-serving) and ``--quant`` other than ``none`` are refused: neither is
-ported.
+names another device; a missing card is an error. ``--quant`` sets
+``MODEL.QUANT``: with int8_static each size bucket calibrates its own
+scales on its own first batch, as in the JAX package. ``--mesh``
+(multi-card serving) is refused: it is not ported.
 """
 
 from __future__ import annotations
@@ -66,7 +67,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--nms-thre", type=float, default=-0.1)
     parser.add_argument("--quant", choices=("none", "int8", "int8_static"),
                         default=None,
-                        help="serving quantization: only 'none' is ported")
+                        help="serving quantization (default cfg "
+                             "MODEL.QUANT; int8* are not reference-exact; "
+                             "int8_static calibrates each bucket on its "
+                             "first batch)")
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
@@ -99,7 +103,7 @@ def build_runtime(args) -> ServingRuntime:
         return runtime
     cfg = load_config(args.cfg)
     if args.quant is not None:
-        cfg["MODEL"]["QUANT"] = args.quant   # build_model refuses int8
+        cfg["MODEL"]["QUANT"] = args.quant
     # conf defaults to a serving cut (0.25); a NEGATIVE value takes the cfg
     # TEST.CONFTHRE eval threshold; nms falls back to cfg TEST.NMSTHRE
     conf_thre = (cfg["TEST"]["CONFTHRE"] if args.conf_thre < 0
@@ -121,7 +125,7 @@ def build_runtime(args) -> ServingRuntime:
         request_timeout_s=args.request_timeout_s, device=args.device)
     logger.info(f"warming {len(sizes)} bucket(s) {sizes} at batch "
                 f"{args.batch_size}, conf {conf_thre}, nms {nms_thre}, "
-                f"device {args.device}")
+                f"quant {cfg['MODEL']['QUANT']}, device {args.device}")
     return runtime
 
 

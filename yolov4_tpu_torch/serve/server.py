@@ -83,7 +83,9 @@ class ServingRuntime:
             model = None
             for size in self.sizes:
                 # the first Predictor builds and loads the model; the
-                # others run the same module
+                # others run the same module. Each keeps int8_static scales
+                # of its own, calibrated on its own first batch (the JAX
+                # package's buckets each own a "quant" collection)
                 pred = Predictor(cfg, state_dict=state_dict, img_size=size,
                                  batch_size=batch_size, conf_thre=conf_thre,
                                  nms_thre=nms_thre, device=device,

@@ -3,7 +3,8 @@
     python -m yolov4_tpu_torch.tools.export_serving out.y4t \
         [--ckpt model_best.ckpt] [--cfg configs/yolov4_Tianxiaomo.cfg] \
         [--img-size 608] [--batch-size 16] [--wire-dtype uint8] \
-        [--device cuda] [--selfcheck]
+        [--quant int8_static --calib-images DIR] [--device cuda] \
+        [--selfcheck]
 
 The port's counterpart of the JAX package's tools/export_serving.py:
 the weights (a JAX package ``.ckpt``, a reference ``.pth.tar`` or an
@@ -13,7 +14,10 @@ serving needs the file and this package's ops only. ``--selfcheck``
 reloads the file and holds its output bit-identical to the live
 predictor's on a random batch. The artifact runs on the device type it
 was exported on (CUDA unless ``--device`` says otherwise). ``--quant``
-other than ``none`` is refused: int8 is not ported.
+sets ``MODEL.QUANT``; an int8_static export calibrates first on up to
+``--batch-size`` images of ``--calib-images`` (jpg/png, resized to the
+export size; random uint8 images, with a warning, when there are none),
+and the scales become constants of the program.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--nms-thre", type=float, default=-1)
     p.add_argument("--quant", choices=("none", "int8", "int8_static"),
                    default=None)
+    p.add_argument("--calib-images", default=None,
+                   help="directory of jpg/png for int8_static calibration")
     p.add_argument("--wire-dtype", choices=("uint8", "float32"),
                    default="uint8")
     p.add_argument("--device", default="cuda")
@@ -45,6 +51,33 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="reload the artifact and verify bit-identical "
                         "output vs the live predictor on a random batch")
     return p.parse_args(argv)
+
+
+def calibration_images(folder: Optional[str], n: int,
+                       size: int) -> np.ndarray:
+    """Up to ``n`` jpg/png images of ``folder`` as a uint8 RGB batch
+    resized to ``size``; ``n`` seeded random images when there are none."""
+    import glob
+
+    import cv2
+    paths = []
+    if folder:
+        for pat in ("*.jpg", "*.png"):
+            paths += sorted(glob.glob(os.path.join(folder, pat)))
+    loaded = []
+    for f in paths[:n]:
+        img = cv2.imread(f)
+        if img is None:
+            print(f"WARNING: skipping unreadable image {f}")
+            continue
+        loaded.append(cv2.resize(img[:, :, ::-1], (size, size)))
+    if loaded:
+        print(f"calibrating on {len(loaded)} image(s)")
+        return np.stack(loaded).astype(np.uint8)
+    print("WARNING: int8_static with no --calib-images: calibrating on "
+          "random data")
+    return np.random.default_rng(0).integers(0, 256, (n, size, size, 3),
+                                             np.uint8)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -57,7 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     cfg = load_config(args.cfg)
     if args.quant is not None:
-        cfg["MODEL"]["QUANT"] = args.quant   # build_model refuses int8
+        cfg["MODEL"]["QUANT"] = args.quant
     conf = cfg["TEST"]["CONFTHRE"] if args.conf_thre < 0 else args.conf_thre
     nms = cfg["TEST"]["NMSTHRE"] if args.nms_thre < 0 else args.nms_thre
     size = args.img_size or cfg["TEST"]["IMGSIZE"]
@@ -71,6 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     predictor = Predictor(cfg, state_dict=state_dict, img_size=size,
                           batch_size=args.batch_size, conf_thre=conf,
                           nms_thre=nms, device=args.device)
+    if predictor.quant == "int8_static":
+        predictor.calibrate(calibration_images(args.calib_images,
+                                               args.batch_size, size))
     wire_dtype = np.dtype(args.wire_dtype)
     header = export_serving(predictor, args.output, wire_dtype=wire_dtype)
     mb = os.path.getsize(args.output) / 1e6

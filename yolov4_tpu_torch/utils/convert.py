@@ -12,6 +12,9 @@ plain ``load_state_dict``. This module adds:
     ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
     ``running_var``, plus ``num_batches_tracked`` = 0 for each BatchNorm
     so that a strict load succeeds;
+  * ``quant_state_from_jax``: the JAX package's int8_static "quant"
+    collection -> an int8_static state a Predictor keeps (its
+    ``quant_state``);
   * ``load_jax_checkpoint``, ``jax_variables``: a JAX package ``.ckpt``
     (flax msgpack, read by the port's own decoder, utils/msgpack.py) and
     its model variables {'params', 'batch_stats'}, where the JAX
@@ -63,20 +66,92 @@ def _split_module(module: str, in_stage1: bool) -> list:
     return (["_".join(parts)] if parts else []) + tail
 
 
-def flax_path_to_torch_key(collection: str, path: Path) -> str:
-    """``('neck', 'spp', 'conv1_0', 'conv', 'kernel')`` in 'params' ->
-    ``neck.spp.conv1.0.conv.weight``."""
-    *modules, leaf = path
+def flax_module_to_torch(modules: Path) -> str:
+    """``('neck', 'spp', 'conv1_0')`` -> ``neck.spp.conv1.0``."""
     segments: list = []
     in_stage1 = False
     for module in modules:
         segments.extend(_split_module(module, in_stage1))
         in_stage1 = in_stage1 or module == "stage1"
+    return ".".join(segments)
+
+
+def flax_path_to_torch_key(collection: str, path: Path) -> str:
+    """``('neck', 'spp', 'conv1_0', 'conv', 'kernel')`` in 'params' ->
+    ``neck.spp.conv1.0.conv.weight``."""
+    *modules, leaf = path
+    prefix = flax_module_to_torch(tuple(modules))
     if collection == "batch_stats":
         leaf_name = {"mean": "running_mean", "var": "running_var"}[leaf]
     else:
         leaf_name = {"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]
-    return ".".join(segments + [leaf_name])
+    return ".".join(([prefix] if prefix else []) + [leaf_name])
+
+
+def quant_state_from_jax(quant: Mapping[str, Any], model) -> Dict[
+        str, Dict[str, torch.Tensor]]:
+    """The JAX package's int8_static "quant" collection -> {site: {amax,
+    wq, sw}} for ``model``'s int8 sites (what ``Predictor.quant_state``
+    takes).
+
+    Each site keeps its calibrated ``amax``. Its ``wq`` (HWIO -> the
+    port's OHWI) and ``sw`` come across where the JAX layer ran the plain
+    conv; a rearranged layout (the s2d stem and stage-1 base conv, WPACK's
+    packed convs: another kernel shape) keeps ``amax`` only and the weights
+    are quantized again from ``model``'s, which gives the same integers
+    (the rearranged taps are copies of the plain ones). The link scales
+    (``link_*``, QUANT_CHAIN) are dropped: the chained program gives the
+    unchained one's outputs bit for bit, and each consumer's own ``amax``
+    holds the same value."""
+    from yolov4_tpu_torch.models.layers import ConvBNAct
+    sites = {m.quant_site: m for m in model.modules()
+             if isinstance(m, ConvBNAct) and m.quant != "none"}
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    refolded = []
+
+    def tensor(value, dtype):
+        if isinstance(value, torch.Tensor):
+            value = value.float().numpy()
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(value).astype(dtype)))
+
+    def walk(tree, prefix: Path):
+        if "amax" in tree and "wq" in tree:
+            name = flax_module_to_torch(prefix)
+            if name not in sites:
+                raise ValueError(f"JAX quant site {'/'.join(prefix)} "
+                                 f"({name}) is not an int8 site of the model")
+            m = sites[name]
+            wq = tensor(tree["wq"], np.int8)
+            amax = tensor(tree["amax"], np.float32).reshape(())
+            want = (m.conv.out_channels, m.conv.in_channels,
+                    *m.conv.kernel_size)
+            if wq.dim() == 4 and (wq.shape[3], wq.shape[2], wq.shape[0],
+                                  wq.shape[1]) == want:
+                out[name] = dict(amax=amax,
+                                 wq=wq.permute(3, 0, 1, 2).contiguous(),
+                                 sw=tensor(tree["sw"], np.float32))
+            else:
+                wq, sw, _ = m.quantized_weights()
+                out[name] = dict(amax=amax, wq=wq.cpu(), sw=sw.cpu())
+                refolded.append(name)
+            return
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + (key,))
+
+    walk(quant, ())
+    missing = sorted(set(sites) - set(out))
+    if missing:
+        raise ValueError(f"the JAX quant collection lacks {len(missing)} "
+                         f"int8 site(s) of the model, e.g. {missing[:3]}")
+    if refolded:
+        from yolov4_tpu_torch.utils.logging import get_logger
+        get_logger(__name__).info(
+            f"quant_state_from_jax: {len(refolded)} site(s) in a rearranged "
+            f"TPU layout ({', '.join(refolded)}): amax carried, weights "
+            "quantized again from the model's")
+    return out
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -12,7 +12,10 @@ K1 and, with ``MODEL.PALLAS_CSP``, K2 are custom ops
 the program calls their CUDA implementations on the card and their plain
 versions on the CPU. K2's folded and packed weights are computed once
 before the trace (models/layers.frozen_stage_weights) and become
-constants of the program.
+constants of the program. Under ``MODEL.QUANT`` the int8 product traces
+as ``aten::_int_mm`` (ops/int8.py; its plain float64 conv on the CPU),
+and an int8_static predictor's calibrated scales become constants too:
+one that has not calibrated is refused, as in the JAX package.
 
 File format (version 1)::
 
@@ -58,6 +61,11 @@ def export_serving(predictor, path: str, wire_dtype=np.uint8) -> Dict:
     name = np.dtype(wire_dtype).name
     if name not in WIRE_DTYPES:
         raise ValueError(f"wire dtype must be uint8 or float32, got {name}")
+    if not predictor.quant_ready:
+        raise ValueError(
+            "int8_static predictor exported before calibration: call "
+            "predictor.calibrate(representative_batch) first so the baked "
+            "scales describe real activations")
     b, s = predictor.batch_size, predictor.img_size
     example = torch.zeros((b, 3 * s * s), dtype=WIRE_DTYPES[name],
                           device=predictor.device)
@@ -76,7 +84,7 @@ def export_serving(predictor, path: str, wire_dtype=np.uint8) -> Dict:
         "conf_thre": float(predictor.conf_thre),
         "nms_thre": float(predictor.nms_thre),
         "outputs": predictor.outputs,
-        "quant": str(predictor.cfg["MODEL"].get("QUANT", "none")),
+        "quant": predictor.quant,
         "platforms": [predictor.device.type],
         "torch_version": torch.__version__,
         "device": predictor.device.type,

@@ -4,14 +4,16 @@ Usage:
     python -m yolov4_tpu_torch.val COCO [-c configs/yolov4_Tianxiaomo.cfg] \
         [--checkpoint weights.pth.tar] [--conf-thre 0.001] [--nms-thre 0.4] \
         [--batch-size 16] [--pre-nms-topk 2048] [--max-dets 100] \
-        [--cat-cap 100] [--letterbox] [--device cuda]
+        [--cat-cap 100] [--letterbox] [--quant int8_static] [--device cuda]
 
 COCO is a directory with ``annotations/instances_val2017.json`` and
 ``images/val2017/{id:012}.jpg``. Runs on CUDA unless ``--device`` names
 another device; a missing card is an error. Weights are a JAX package
 ``.ckpt``, reference ``.pth``/``.pth.tar``/``.pt`` or ``.npz`` state
-dicts; without one the weights are the reference init from seed 0. ``MODEL.PALLAS_CSP`` in the
-config runs CSP stages 1-3 through the fused stage kernel.
+dicts; without one the weights are the reference init from seed 0.
+``MODEL.PALLAS_CSP`` in the config runs CSP stages 1-3 through the fused
+stage kernel; ``--quant`` (``MODEL.QUANT``) runs the int8 convs, and
+int8_static calibrates its scales on the first batch.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--letterbox", action="store_true",
                         help="aspect-preserving letterbox eval geometry "
                              "(cfg TEST.LETTERBOX)")
+    parser.add_argument("--quant", choices=("none", "int8", "int8_static"),
+                        default=None,
+                        help="serving quantization mode (default cfg "
+                             "MODEL.QUANT; int8* are not reference-exact; "
+                             "int8_static calibrates on the first batch)")
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
@@ -76,6 +83,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
         test["CAT_CAP"] = args.cat_cap
     if args.letterbox:
         test["LETTERBOX"] = True
+    if args.quant is not None:
+        cfg["MODEL"]["QUANT"] = args.quant
     batch_size = (test.get("BATCH_SIZE", 8) if args.batch_size < 0
                   else args.batch_size)
 
@@ -93,7 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
     loader = DataLoader(dataset, batch_size=batch_size)
     logger.info(f"val2017: {len(dataset)} images, batch {batch_size}, imgsize "
                 f"{test['IMGSIZE']}, conf {conf}, nms {nms}, device "
-                f"{args.device}, PALLAS_CSP {cfg['MODEL']['PALLAS_CSP']}")
+                f"{args.device}, PALLAS_CSP {cfg['MODEL']['PALLAS_CSP']}, "
+                f"QUANT {cfg['MODEL']['QUANT']}")
     predictor = Predictor(cfg, state_dict=state_dict, batch_size=batch_size,
                           conf_thre=conf, nms_thre=nms, device=args.device)
     ap, ap50 = validate(loader, predictor)
