@@ -177,6 +177,30 @@ line:
                MODEL.BACKBONE_PRETRAINED of the full-width detector (its
                backbone equal) and one 608/b2 Predictor batch.
 
+ 16. learning — the learning smokes at full width, 320x320, batch 8,
+               bfloat16 (run after phase 14): (a) tools.overfit_smoke.run
+               at its defaults, 300 steps on one batch (train-set AP50 >
+               0.9); (b) tools.generalization_smoke.run's manual loop at its
+               defaults, 128 training shapes, 40 epochs (fewer when its
+               training, at the rate of an epoch timed before it, would
+               carry phase 16 past LEARN_BUDGET_S), scored on 32 held-out shapes (AP50 >= 0.5) and on its train
+               split; (c) quant_ab on (b)'s raw weights (each int8 preset's
+               |dAP50| <= 0.05, approx_topk's delta exactly 0); (d) the
+               held-out split with PALLAS_CSP on against off (|dAP50| <=
+               0.02, K2 3 a forward), and on one held-out batch K2 on each
+               stage's input and K1 on its candidates against their plain
+               versions (float32 and bfloat16; the keep masks equal); (e) --use-trainer --recipe for 6
+               epochs on 32 / 8 shapes (the AP curve, 6 eval records), then
+               both --resume refusals (non-zero exit, the root and its
+               checkpoint kept); (f) tools.export_torch on (b)'s weights,
+               the .pth.tar reloaded into a fresh Predictor with
+               detections bit-equal to the live weights', the COCO gate
+               without data (exit 2, BLOCKED) and on (b)'s root with that
+               .pth.tar (its AP = val.main's with the same arguments); (g)
+               COCOeval on this host with the C matcher: the 5000-image
+               val2017-scale set under 60 s, and at 500 images stats equal
+               to the numpy matcher's. K1 and K2 counted over (a)-(f).
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...], "library_products": [...]}`` (K1 and K2, then the
 int8 product, a library call) and, last, ``{"ok": true, "device":
@@ -3323,6 +3347,438 @@ def phase_classify(cfg_cls, build_model, nms_cuda, csp_cuda, smi, report):
     return detector
 
 
+# Phase 16 (learning): the gates. (a) the overfit tool's own assertion;
+# (b) a port that does not learn scores near 0 held-out, the JAX package
+# 0.80, so 0.5 leaves room for seed spread; (c) int8 against bf16 on the
+# same weights (JAX: at most 0.0023 AP); (d) PALLAS_CSP against the default
+# path on the same weights: both round to bfloat16 at different points and
+# one flipped detection of 32 images moves AP50 by about 0.01.
+LEARN_OVERFIT_AP50 = 0.9
+LEARN_HELDOUT_AP50 = 0.5
+LEARN_INT8_DAP50 = 0.05
+LEARN_CSP_DAP50 = 0.02
+LEARN_BUDGET_S = 360          # phase 16's time; (b)'s epochs are cut to fit
+COCOEVAL_GATE_S = 60.0        # the JAX package's host-time gate, 5000 images
+
+
+def k_counts(nms_cuda, csp_cuda):
+    return (nms_cuda.greedy_nms_mask_cuda.launches,
+            csp_cuda.fused_csp_stage_cuda.launches)
+
+
+@contextmanager
+def captured_stdout():
+    """stdout collected into a list's one string, then echoed."""
+    import contextlib
+    import io
+    buf, out = io.StringIO(), []
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield out
+    finally:
+        out.append(buf.getvalue())
+        sys.stdout.write(out[0])
+        sys.stdout.flush()
+
+
+def learn_overfit(work, smi, report):
+    """(a) tools.overfit_smoke.run at its defaults."""
+    from yolov4_tpu_torch.tools import overfit_smoke
+    args = overfit_smoke.parse_args(["--root", str(work / "overfit")])
+    r = overfit_smoke.run(overfit_smoke.build_cfg(args), args)
+    losses = ", ".join(f"{s}: {v:.1f}" for s, v in r["losses"])
+    log(f"[learning] (a) overfit, full width 320/b8 bf16, {r['steps']} "
+        f"steps ({smi}): loss {losses}; final {r['final_loss']:.1f}; "
+        f"train-set AP {r['ap']:.4f} AP50 {r['ap50']:.4f}; step "
+        f"{r['step_ms']:.2f} ms; {r['seconds']:.1f}s; launches "
+        f"{r['launches']}")
+    report["learning"]["overfit"] = {k: r[k] for k in (
+        "losses", "final_loss", "ap", "ap50", "steps", "step_ms",
+        "train_seconds", "seconds", "launches")}
+    if not r["ap50"] > LEARN_OVERFIT_AP50:
+        raise AssertionError(f"overfit: train-set AP50 {r['ap50']} <= "
+                             f"{LEARN_OVERFIT_AP50}")
+    if r["launches"]["greedy_nms_mask"] < 1:
+        raise AssertionError("overfit: K1 never launched in its scoring")
+    return r
+
+
+def epoch_s(gen, cfg, args):
+    """The seconds of one epoch of (b)'s manual loop, its loader included,
+    on a model built for the purpose, after one step that warms it up."""
+    from yolov4_tpu_torch.tools.overfit_smoke import build_train, to_device
+    gen.prepare_dataset(args)
+    device = torch.device("cuda")
+    loader = gen.train_loader(cfg, args)
+    _, step, state = build_train(cfg, device, len_epoch=len(loader))
+    imgs, target = next(iter(loader))
+    state = step(state, *to_device(imgs, target["padded_labels"], device))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for imgs, target in loader:
+        state = step(state, *to_device(imgs, target["padded_labels"], device))
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def learn_generalize(work, t_phase, smi, report):
+    """(b) tools.generalization_smoke.run in its manual loop at its
+    defaults, the epochs cut (never the width or the size) when its
+    training, at the rate of an epoch timed before it, would carry phase
+    16 past LEARN_BUDGET_S."""
+    from yolov4_tpu_torch.tools import generalization_smoke as gen
+    args = gen.build_parser().parse_args(["--root", str(work / "shapes")])
+    one = epoch_s(gen, gen.build_cfg(args), args)
+    left = LEARN_BUDGET_S - (time.time() - t_phase)
+    fits = int(left // one)
+    log(f"[learning] (b) an epoch took {one:.2f}s; {args.epochs} epochs "
+        f"would take {args.epochs * one:.0f}s of the {left:.0f}s left of "
+        f"phase 16's {LEARN_BUDGET_S}s")
+    if fits < args.epochs:
+        log(f"[learning] (b) running {max(fits, 1)} epochs to fit")
+        args.epochs = max(fits, 1)
+    cfg = gen.build_cfg(args)
+    r = gen.run(cfg, args)
+    log(f"[learning] (b) generalization, full width 320/b8 bf16, "
+        f"{args.train_images} train / {args.val_images} held-out shapes, "
+        f"{args.epochs} epochs, {r['steps']} steps ({smi}): held-out AP "
+        f"{r['ap']:.4f} AP50 {r['ap50']:.4f}; train split AP "
+        f"{r['train_ap']:.4f} AP50 {r['train_ap50']:.4f}; step "
+        f"{r['step_ms']:.2f} ms; {r['seconds']:.1f}s; launches "
+        f"{r['launches']}")
+    report["learning"]["generalization"] = dict(
+        {k: r[k] for k in ("losses", "ap", "ap50", "train_ap", "train_ap50",
+                           "steps", "step_ms", "train_seconds", "seconds",
+                           "launches")}, epochs=args.epochs,
+        epoch_s=one)
+    if not r["ap50"] >= LEARN_HELDOUT_AP50:
+        raise AssertionError(f"generalization: held-out AP50 {r['ap50']} < "
+                             f"{LEARN_HELDOUT_AP50}")
+    return cfg, args, r
+
+
+def learn_quant(cfg, args, weights, smi, report):
+    """(c) quant_ab on (b)'s weights."""
+    from yolov4_tpu_torch.tools import generalization_smoke as gen
+    t0 = time.time()
+    q = gen.quant_ab(cfg, weights, args.root, args.img_size,
+                     args.batch_size, "cuda")
+    seconds = time.time() - t0
+    deltas = "; ".join(f"{name} dAP {v['delta_ap']:+.4f} dAP50 "
+                       f"{v['delta_ap50']:+.4f}" for name, v in q.items()
+                       if name != "bf16")
+    log(f"[learning] (c) quant_ab on (b)'s raw weights, held-out ({smi}): "
+        f"bf16 AP {q['bf16']['ap']:.4f} AP50 {q['bf16']['ap50']:.4f}; "
+        f"{deltas} (JAX package: int8 costs <= 0.0023 AP); {seconds:.1f}s")
+    report["learning"]["quant"] = dict(q, seconds=seconds)
+    bad = {name: v["delta_ap50"] for name, v in q.items()
+           if name.startswith("int8")
+           and not abs(v["delta_ap50"]) <= LEARN_INT8_DAP50}
+    if bad:
+        raise AssertionError(f"quant_ab: |dAP50| > {LEARN_INT8_DAP50}: {bad}")
+    if q["approx_topk"]["delta_ap"] != 0 or q["approx_topk"]["delta_ap50"] != 0:
+        raise AssertionError(f"quant_ab: approx_topk moved AP: "
+                             f"{q['approx_topk']}")
+    return q["bf16"]
+
+
+def learn_kernel_inputs(cfg, args, weights, nms_cuda, csp_cuda, report):
+    """K2 on each stage's input and K1 on the candidates that one held-out
+    batch of ``cfg``'s Predictor gives them (320/b8, trained weights),
+    against their plain versions: K2 in float32 and bfloat16 within
+    K2_TOL_*, K1's keep mask equal. These launches are comparisons, so the
+    launch counts are put back as they were."""
+    from yolov4_tpu_torch.engine.predictor import Predictor
+    from yolov4_tpu_torch.models import layers
+    from yolov4_tpu_torch.ops import postprocess
+    from yolov4_tpu_torch.ops.csp import fused_csp_stage_plain
+    from yolov4_tpu_torch.ops.nms import greedy_nms_mask
+    from yolov4_tpu_torch.tools.overfit_smoke import CONF, NMS, eval_loader
+    counts = k_counts(nms_cuda, csp_cuda)
+    imgs, _ = next(iter(eval_loader(cfg, args.root, "val2017",
+                                    args.img_size, args.batch_size)))
+    pred = Predictor(cfg, state_dict=weights, img_size=args.img_size,
+                     batch_size=args.batch_size, conf_thre=CONF, nms_thre=NMS,
+                     device="cuda")
+    k2, k1 = layers.fused_csp_stage_cuda, postprocess.greedy_nms_mask_cuda
+    stages, cands = [], []
+
+    def capture_k2(x, folded, nb, packed):
+        stages.append((x.clone(), folded, nb, packed))
+        return k2(x, folded, nb, packed)
+
+    def capture_k1(boxes, valid, t):
+        cands.append((boxes.clone(), valid.clone(), t))
+        return k1(boxes, valid, t)
+
+    layers.fused_csp_stage_cuda = capture_k2
+    postprocess.greedy_nms_mask_cuda = capture_k1
+    try:
+        pred(imgs)
+    finally:
+        layers.fused_csp_stage_cuda, postprocess.greedy_nms_mask_cuda = k2, k1
+    if len(stages) != 3 or len(cands) != 1 or not bool(cands[0][1].any()):
+        raise AssertionError(f"one held-out batch gave K2 {len(stages)} and "
+                             f"K1 {len(cands)} inputs, "
+                             f"{[int(c[1].sum()) for c in cands]} candidates")
+    rows = []
+    with tf32_off(), torch.inference_mode():
+        for name, (x, folded, nb, packed) in zip(
+                ("stage1", "stage2", "stage3"), stages):
+            for dt in (torch.float32, torch.bfloat16):
+                res = check_k2(csp_cuda, fused_csp_stage_plain, x.to(dt),
+                               folded, nb, packed if x.dtype == dt else None,
+                               f"{name} 320/b8 trained {str(dt)[6:]}")
+                rows.append(dict(stage=name, shape=list(x.shape),
+                                 num_blocks=nb, dtype=str(dt)[6:], **res))
+        boxes, valid, t = cands[0]
+        got = nms_cuda.greedy_nms_mask_cuda(boxes, valid, t)
+        torch.cuda.synchronize()
+        want = greedy_nms_mask(boxes, valid, t)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K1 on a held-out batch's candidates "
+                             f"{tuple(boxes.shape)}: keep masks differ at "
+                             f"{int((got != want).sum())} positions")
+    nms_cuda.greedy_nms_mask_cuda.launches = counts[0]
+    csp_cuda.fused_csp_stage_cuda.launches = counts[1]
+    k1_row = dict(shape=list(boxes.shape), t=t, valid=int(valid.sum()),
+                  kept=int(got.sum()))
+    log(f"[learning] (d) on one held-out batch's inputs: K2 within its "
+        f"tolerances at {[r['shape'] for r in rows[::2]]} in float32 and "
+        f"bfloat16 (max_abs_err {max(r['max_abs_err'] for r in rows):.4g}); "
+        f"K1's keep mask equal to the plain version's ({k1_row})")
+    report["learning"]["kernel_inputs"] = dict(k2=rows, k1=k1_row)
+
+
+def learn_k2(cfg, args, weights, bf16, nms_cuda, csp_cuda, smi, report):
+    """(d) the held-out split with PALLAS_CSP on against (c)'s bf16 score
+    with it off: K2 on trained weights, 3 launches a forward; then K1 and
+    K2 against their plain versions on the inputs this path gives them."""
+    from yolov4_tpu_torch.tools.overfit_smoke import score
+    import copy
+    fused = copy.deepcopy(cfg)
+    fused["MODEL"]["PALLAS_CSP"] = True
+    before = k_counts(nms_cuda, csp_cuda)
+    t0 = time.time()
+    ap, ap50 = score(fused, weights, args.root, "val2017",
+                     args.img_size, args.batch_size, "cuda")
+    seconds = time.time() - t0
+    k1, k2 = (a - b for a, b in zip(k_counts(nms_cuda, csp_cuda), before))
+    batches = math.ceil(args.val_images / args.batch_size)
+    log(f"[learning] (d) held-out with PALLAS_CSP on ({smi}): AP {ap:.4f} "
+        f"AP50 {ap50:.4f} against {bf16['ap']:.4f} / {bf16['ap50']:.4f} off "
+        f"(dAP50 {ap50 - bf16['ap50']:+.4f}); K1 {k1}, K2 {k2} launches in "
+        f"{batches} batches; {seconds:.1f}s")
+    report["learning"]["pallas_csp"] = dict(ap=ap, ap50=ap50, k1=k1, k2=k2,
+                                            off_ap=bf16["ap"],
+                                            off_ap50=bf16["ap50"],
+                                            seconds=seconds)
+    if k2 != 3 * batches or k1 != batches:
+        raise AssertionError(f"PALLAS_CSP scoring: K1 {k1}, K2 {k2} in "
+                             f"{batches} batches")
+    if not abs(ap50 - bf16["ap50"]) <= LEARN_CSP_DAP50:
+        raise AssertionError(f"PALLAS_CSP: |dAP50| {ap50 - bf16['ap50']} > "
+                             f"{LEARN_CSP_DAP50}")
+    learn_kernel_inputs(fused, args, weights, nms_cuda, csp_cuda, report)
+
+
+def learn_trainer(work, smi, report):
+    """(e) --use-trainer --recipe at 6 epochs on 32 / 8 images: the curve
+    and 6 eval records; then both --resume refusals leave the root and its
+    checkpoint on disk."""
+    from yolov4_tpu_torch.tools import generalization_smoke as gen
+    root = work / "recipe"
+    argv = ["--use-trainer", "--recipe", "--epochs", "6", "--train-images",
+            "32", "--val-images", "8", "--root", str(root)]
+    with captured_stdout() as text:
+        r = gen.main(argv)
+    evals = [json.loads(line) for line in
+             (Path(r["output_dir"]) / "metrics.jsonl").read_text()
+             .splitlines()]
+    evals = [e for e in evals if e.get("kind") == "eval"]
+    if "held-out AP curve" not in text[0] or len(evals) != 6 \
+            or len(r["recipe"]["curve"]) != 6:
+        raise AssertionError(f"--recipe: {len(evals)} eval records, curve "
+                             f"{r['recipe']['curve']}")
+    ckpt = Path(r["output_dir"]) / "checkpoint.pth"
+    stamp = (root / "dataset_params.json").read_text()
+    refusals = {}
+    for name, extra in (("without --use-trainer", []),
+                        ("changed dataset flags",
+                         ["--use-trainer", "--train-images", "16"])):
+        try:
+            gen.main(["--resume", str(ckpt), "--root", str(root),
+                      "--val-images", "8", "--epochs", "6"]
+                     + (["--train-images", "32"] if not extra else extra))
+        except SystemExit as err:
+            refusals[name] = err.code
+        else:
+            raise AssertionError(f"--resume {name} was not refused")
+        if not (ckpt.is_file() and
+                (root / "dataset_params.json").read_text() == stamp):
+            raise AssertionError(f"--resume {name} removed the root or its "
+                                 "checkpoint")
+    if not all(code not in (0, None) for code in refusals.values()):
+        raise AssertionError(f"--resume refusals exited {refusals}")
+    log(f"[learning] (e) --use-trainer --recipe, 6 epochs, 32 / 8 images "
+        f"({smi}): best held-out AP {r['ap']:.4f} AP50 {r['ap50']:.4f}, "
+        f"{len(evals)} eval records, LR drop {r['recipe']['pre_ap50']} -> "
+        f"{r['recipe']['post_ap50']}; {r['seconds']:.1f}s; --resume "
+        f"refusals exit {refusals}, root and checkpoint kept")
+    report["learning"]["trainer"] = dict(
+        ap=r["ap"], ap50=r["ap50"], seconds=r["seconds"],
+        launches=r["launches"], curve=r["recipe"]["curve"],
+        refusals=refusals)
+    return r
+
+
+@contextmanager
+def working_dir(path):
+    import os
+    old = os.getcwd()
+    saved = {k: os.environ.pop(k) for k in ("COCO_ROOT", "YOLOV4_CKPT")
+             if k in os.environ}
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+        os.environ.update(saved)
+
+
+def learn_export(work, cfg, args, gen_result, smi, report):
+    """(f) export_torch on (b)'s weights, reloaded into a fresh Predictor
+    (detections bit-equal to the live weights'); the gate with no data
+    (exit 2, BLOCKED) and on (b)'s root with that .pth.tar (its AP equal
+    to val.main's with the same arguments)."""
+    from yolov4_tpu_torch import val as val_mod
+    from yolov4_tpu_torch.engine.predictor import Predictor
+    from yolov4_tpu_torch.tools import export_torch, run_coco_gate
+    from yolov4_tpu_torch.tools.overfit_smoke import CONF, NMS, eval_loader
+    from yolov4_tpu_torch.utils.checkpoint import save_checkpoint
+    from yolov4_tpu_torch.utils.convert import load_weights
+    meta = {"epoch": args.epochs - 1, "ap50": gen_result["ap50"],
+            "ap50_95": gen_result["ap"], "best_ap50": gen_result["ap50"],
+            "best_ap50_95": gen_result["ap"]}
+    weights = {k: v.detach().cpu() for k, v in gen_result["weights"].items()}
+    ckpt = save_checkpoint({"variables": weights, "meta": meta}, False,
+                           output_dir=str(work), filename="shapes.pth")
+    tar = str(work / "shapes.pth.tar")
+    t0 = time.time()
+    if export_torch.main([ckpt, tar]) != 0:
+        raise AssertionError("export_torch failed")
+    export_s = time.time() - t0
+    imgs, _ = next(iter(eval_loader(cfg, args.root, "val2017",
+                                    args.img_size, args.batch_size)))
+    outs = [Predictor(cfg, state_dict=sd, img_size=args.img_size,
+                      batch_size=args.batch_size, conf_thre=CONF,
+                      nms_thre=NMS, device="cuda")(imgs)
+            for sd in (weights, load_weights(tar))]
+    if not all(np.array_equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("the exported .pth.tar detects otherwise than "
+                             "the live weights")
+    empty = work / "gate_empty"
+    empty.mkdir()
+    with working_dir(empty), captured_stdout() as text:
+        blocked = run_coco_gate.main(["--device", "cuda"])
+    if blocked != 2 or "BLOCKED" not in text[0]:
+        raise AssertionError(f"the gate without data exited {blocked}")
+    gate_argv = ["--data", args.root, "--checkpoint", tar, "--device",
+                 "cuda"]
+    t0 = time.time()
+    with captured_stdout() as text:
+        gate_rc = run_coco_gate.main(gate_argv)
+    gate_s = time.time() - t0
+    line = [s for s in text[0].splitlines() if s.startswith("GATE: AP")]
+    ap, ap50 = val_mod.main([
+        args.root, "-c", run_coco_gate.DEFAULT_CFG, "--checkpoint", tar,
+        "--conf-thre", "0.0001", "--nms-thre", "0.4", "--batch-size", "8",
+        "--pre-nms-topk", "2048", "--max-dets", "1024", "--device", "cuda"])
+    want = f"GATE: AP {ap:.5f} (published 0.35925) AP50 {ap50:.5f}"
+    if gate_rc not in (0, 1) or len(line) != 1 or not line[0].startswith(want):
+        raise AssertionError(f"the gate printed {line} (exit {gate_rc}); "
+                             f"val.main gives AP {ap:.5f} AP50 {ap50:.5f}")
+    log(f"[learning] (f) export_torch: {len(load_weights(tar))} tensors "
+        f"(num_batches_tracked left out) in {export_s:.1f}s, its detections "
+        f"bit-equal to the live weights'; gate without data: exit 2, "
+        f"BLOCKED; gate on (b)'s root at the published protocol (608, conf "
+        f"0.0001): {line[0]} (exit {gate_rc}) = val.main's; {gate_s:.1f}s "
+        f"({smi})")
+    report["learning"]["export_gate"] = dict(
+        export_s=export_s, gate_exit_blocked=blocked, gate_exit=gate_rc,
+        gate_ap=ap, gate_ap50=ap50, gate_s=gate_s)
+
+
+def learn_cocoeval(smi, report):
+    """(g) COCOeval on this host: the C matcher runs, the 5000-image set
+    in under COCOEVAL_GATE_S, and at 500 images the stats of both
+    matchers equal."""
+    import contextlib
+    from unittest import mock
+
+    from yolov4_tpu_torch import native
+    from yolov4_tpu_torch.data.synthetic import val2017_scale_case
+    from yolov4_tpu_torch.eval.cocoeval import COCOEvaluator
+    index, dts = val2017_scale_case(5000)
+    ev = COCOEvaluator(index)
+    t0 = time.time()
+    ev.add_detections(dts)
+    stats = ev.evaluate(verbose=False)
+    seconds = time.time() - t0
+    if ev.matcher != "c":
+        raise AssertionError(f"COCOeval ran the {ev.matcher} matcher")
+    if not seconds < COCOEVAL_GATE_S or not 0.0 < stats[0] < 1.0:
+        raise AssertionError(f"COCOeval on 5000 images: {seconds:.1f}s, AP "
+                             f"{stats[0]}")
+    index, dts = val2017_scale_case(500)
+    small = {}
+    for no_c in (False, True):
+        # the numpy matcher runs as on a host that cannot build the C one
+        with mock.patch.object(native, "get_fastops", lambda: None) \
+                if no_c else contextlib.nullcontext():
+            ev = COCOEvaluator(index)
+            t1 = time.time()
+            ev.add_detections(dts)
+            small[ev.matcher] = (ev.evaluate(verbose=False), time.time() - t1)
+    if not np.array_equal(small["c"][0], small["numpy"][0]):
+        raise AssertionError(f"COCOeval at 500 images: C {small['c'][0]} "
+                             f"numpy {small['numpy'][0]}")
+    log(f"[learning] (g) COCOeval, C matcher: 5000 images x 100 detections "
+        f"in {seconds:.2f}s (gate {COCOEVAL_GATE_S:.0f}s), AP {stats[0]:.4f} "
+        f"AP50 {stats[1]:.4f}; 500 images: C {small['c'][1]:.2f}s, numpy "
+        f"{small['numpy'][1]:.2f}s, stats equal (the host of {smi})")
+    report["learning"]["cocoeval"] = dict(
+        seconds_5000=seconds, stats_5000=stats.tolist(),
+        seconds_500_c=small["c"][1], seconds_500_numpy=small["numpy"][1])
+
+
+def phase_learning(nms_cuda, csp_cuda, smi, report):
+    """Phase 16; returns K1's and K2's launches in (a)-(f)."""
+    t0 = time.time()
+    report["learning"] = {}
+    work = ROOT / "runs" / "chip_smoke_learning"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    learn_overfit(work, smi, report)
+    cfg, args, gen_result = learn_generalize(work, t0, smi, report)
+    bf16 = learn_quant(cfg, args, gen_result["weights"], smi, report)
+    learn_k2(cfg, args, gen_result["weights"], bf16, nms_cuda, csp_cuda,
+             smi, report)
+    learn_trainer(work, smi, report)
+    learn_export(work, cfg, args, gen_result, smi, report)
+    k1, k2 = k_counts(nms_cuda, csp_cuda)
+    learn_cocoeval(smi, report)
+    shutil.rmtree(work, ignore_errors=True)
+    report["learning"].update(seconds=time.time() - t0, k1=k1, k2=k2)
+    log(f"[learning] phase 16 in {time.time() - t0:.1f}s; K1 {k1}, K2 {k2} "
+        "launches")
+    if k1 < 1 or k2 < 1:
+        raise AssertionError(f"phase 16: K1 {k1}, K2 {k2} launches")
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3395,6 +3851,7 @@ def main() -> int:
     # detector built on its backbone runs one Predictor batch
     cls_k1, cls_k2 = phase_classify(Config, build_model, nms_cuda, csp_cuda,
                                     smi, report)
+    learn_n1, learn_n2 = phase_learning(nms_cuda, csp_cuda, smi, report)
     kernels = {"kernels": [{
         "name": "greedy_nms_mask",
         "route": "cuda",
@@ -3404,11 +3861,13 @@ def main() -> int:
         # artifact runtime, video), the Trainer's validations (the three
         # Trainer runs and their resumes; of them, the runs with
         # AUGMENTATION.DEVICE), phase 12's data-parallel validations,
-        # phase 14's detector batch on the classifier's backbone and
-        # phase 15's int8 runs (Predictor, serving, val)
+        # phase 14's detector batch on the classifier's backbone,
+        # phase 15's int8 runs (Predictor, serving, val) and phase 16's
+        # learning smokes, their scoring, the export check and the gate
         "launches": (launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1
-                     + int8_k1),
+                     + int8_k1 + learn_n1),
         "launches_in_serving": serve_k1,
+        "launches_in_learning": learn_n1,
         "launches_in_int8": int8_k1,
         "launches_in_serving_by_run": {k: v[0] for k, v in
                                        serve_launches.items()},
@@ -3440,10 +3899,11 @@ def main() -> int:
         # val's batches, the serving phase's, the Trainer's validations,
         # phase 12's and phase 15's (2 a forward under QUANT_SPAN late,
         # none under full; phase 14's detector batch runs without
-        # PALLAS_CSP)
+        # PALLAS_CSP) and phase 16's PALLAS_CSP scoring of trained weights
         "launches": (k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2
-                     + int8_k2),
+                     + int8_k2 + learn_n2),
         "launches_in_serving": serve_k2,
+        "launches_in_learning": learn_n2,
         "launches_in_int8": int8_k2,
         "launches_per_int8_forward": {"late": 2, "full": 0},
         "launches_in_serving_by_run": {k: v[1] for k, v in
@@ -3453,6 +3913,11 @@ def main() -> int:
         "launches_in_ddp": ddp_k2,
         "launches_in_classifier": 0,
         "max_abs_err": max(r["max_abs_err"] for r in stages),
+        # phase 16 (d): each stage's input of a held-out batch at 320/b8,
+        # trained weights, float32 and bfloat16
+        "max_abs_err_learning": max(
+            r["max_abs_err"]
+            for r in report["learning"]["kernel_inputs"]["k2"]),
         "ms": sum(r["ms"] for r in stages),
         "device_ms": sum(r["device_ms"] for r in stages),
         "plain_ms": sum(r["plain_ms"] for r in stages),

@@ -196,3 +196,76 @@ def test_val_main_on_cpu(tmp_path):
                      "--batch-size", "3", "--conf-thre", "0.001",
                      "--checkpoint", str(tmp_path / "model.ckpt")]) \
         == (ap, ap50)
+
+
+def test_val_takes_every_flag_of_the_root_val(tmp_path):
+    """Every option of the root val.py's parser parses in the port's."""
+    import ast
+    from pathlib import Path
+    tree = ast.parse((Path(__file__).parents[1] / "val.py").read_text())
+    flags = [arg.value for node in ast.walk(tree)
+             if isinstance(node, ast.Call)
+             and getattr(node.func, "attr", "") == "add_argument"
+             for arg in node.args if isinstance(arg, ast.Constant)
+             and arg.value.startswith("-")]
+    assert {"--workers", "--approx-topk", "--quant"} <= set(flags)
+    values = {"--cfg": "x.cfg", "-c": "x.cfg", "--checkpoint": "w.pth",
+              "-ckpt": "w.pth", "--quant": "int8"}
+    argv = ["DIR"]
+    for flag in flags:
+        if flag in ("--approx-topk", "--letterbox"):
+            argv.append(flag)
+        else:
+            argv += [flag, values.get(flag, "2")]
+    args = val.parse_args(argv)
+    assert args.workers == 2 and args.approx_topk
+
+
+@pytest.mark.parametrize("argv,workers", [([], 3), (["--workers", "0"], 0),
+                                          (["--workers", "2"], 2)])
+def test_val_workers_reach_the_eval_loader(tmp_path, monkeypatch, argv,
+                                           workers):
+    """--workers overrides DATA.WORKERS for the eval loader, as the root
+    val.py does."""
+    root = str(tmp_path / "coco")
+    make_fake_coco(root, "val2017", n_images=2, seed=5)
+    cfg_path = tmp_path / "small.cfg"
+    cfg_path.write_text(yaml.safe_dump({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "TEST": {"IMGSIZE": 64}, "DATA": {"WORKERS": 3}}))
+    seen = {}
+
+    def fake_validate(loader, predictor):
+        seen["workers"] = loader.num_workers
+        return 0.25, 0.5
+
+    monkeypatch.setattr(val, "validate", fake_validate)
+    assert val.main([root, "-c", str(cfg_path), "--device", "cpu"]
+                    + argv) == (0.25, 0.5)
+    assert seen["workers"] == workers
+
+
+def test_val_approx_topk_sets_the_key_and_warns(tmp_path, monkeypatch):
+    """--approx-topk sets TEST.APPROX_TOPK; the port warns that it ignores
+    the TPU option and scores exactly as without it."""
+    root = str(tmp_path / "coco")
+    make_fake_coco(root, "val2017", n_images=3, seed=5)
+    cfg_path = tmp_path / "small.cfg"
+    cfg_path.write_text(yaml.safe_dump({
+        "MODEL": {"WIDTH": 0.25, "DEPTH": 0.25, "COMPUTE_DTYPE": "float32"},
+        "TEST": {"IMGSIZE": 64}, "DATA": {"WORKERS": 0}}))
+    argv = [root, "-c", str(cfg_path), "--device", "cpu", "--batch-size",
+            "3", "--conf-thre", "0.001"]
+    keys = []
+    real_predictor = val.Predictor
+
+    def recording_predictor(cfg, **kwargs):
+        keys.append(cfg["TEST"]["APPROX_TOPK"])
+        return real_predictor(cfg, **kwargs)
+
+    monkeypatch.setattr(val, "Predictor", recording_predictor)
+    exact = val.main(argv)
+    with pytest.warns(UserWarning, match="APPROX_TOPK"):
+        approx = val.main(argv + ["--approx-topk"])
+    assert keys == [False, True]
+    assert approx == exact

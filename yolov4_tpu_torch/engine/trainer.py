@@ -38,6 +38,7 @@ from yolov4_tpu_torch.engine.evaluator import validate
 from yolov4_tpu_torch.engine.predictor import Predictor, resolve_device
 from yolov4_tpu_torch.models import build_model
 from yolov4_tpu_torch.models.yolov4 import DTYPES
+from yolov4_tpu_torch.ops import kernel_launches, launches_since
 from yolov4_tpu_torch.ops.loss import build_criterion
 from yolov4_tpu_torch.optim import build_lr_schedule, build_optimizer
 from yolov4_tpu_torch.parallel import create_train_state, make_train_step
@@ -48,14 +49,6 @@ from yolov4_tpu_torch.utils.metrics import AverageMeter, MetricsJSONL
 from yolov4_tpu_torch.utils.profiling import StepProfiler
 
 logger = get_logger(__name__)
-
-
-def _kernel_launches() -> Dict[str, int]:
-    """The launch counts of the NMS kernel (K1) and the fused CSP stage
-    kernel (K2) in this process so far."""
-    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
-    return {"greedy_nms_mask": nms_cuda.greedy_nms_mask_cuda.launches,
-            "fused_csp_stage": csp_cuda.fused_csp_stage_cuda.launches}
 
 
 class Trainer:
@@ -316,12 +309,11 @@ class Trainer:
         into ``eval_launches``."""
         self.predictor.model.load_state_dict(
             self._named_state(self.state.ema_params is not None))
-        before = _kernel_launches()
+        before = kernel_launches()
         stats = validate(self.val_loader, self.predictor,
                          conf_threshold=self.cfg["TEST"]["CONFTHRE"],
                          nms_threshold=self.cfg["TEST"]["NMSTHRE"])
-        self.eval_launches = {k: v - before[k]
-                              for k, v in _kernel_launches().items()}
+        self.eval_launches = launches_since(before)
         return stats
 
     def save(self, epoch: int, ap50: float, ap50_95: float) -> None:

@@ -14,10 +14,12 @@ bbox protocol of pycocotools.cocoeval.COCOeval, with the standard
   * stable mergesort score ordering for determinism.
 
 The (img, cat) IoU matrix is computed once and reused across the four
-area ranges; the greedy matching runs in numpy, batched over all images of
-one (category, area range) (the JAX package's native C matcher is host
-code the port does not carry); accumulation is vectorized over IoU
-thresholds. Detections are accumulated in memory.
+area ranges; the greedy matching runs in the port's native C matcher
+(native/fastops.c ``coco_match``, the JAX package's copy), batched over
+all images of one (category, area range), with ``_match_batch_plain``, its
+numpy version, as the fallback on a host that cannot build it
+(``COCOEvaluator.matcher`` says which ran); accumulation is vectorized
+over IoU thresholds. Detections are accumulated in memory.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from yolov4_tpu_torch import native
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -58,11 +62,12 @@ def _iou_tlwh(dts: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.ndarr
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
-def _match_batch(ious_flat, g_ig, iscrowd, d_out, nd, ng):
-    """Greedy matching of every image of one (category, area range) at
-    every IoU threshold, the per-gt scan vectorized (two-phase: non-ignored
-    candidates, then ignored — equivalent to pycocotools' sorted scan with
-    break-at-first-ignored). Returns (matched, ignored) [T, total dts]."""
+def _match_batch_plain(ious_flat, g_ig, iscrowd, d_out, nd, ng):
+    """The C matcher's numpy version: greedy matching of every image of one
+    (category, area range) at every IoU threshold, the per-gt scan
+    vectorized (two-phase: non-ignored candidates, then ignored —
+    equivalent to pycocotools' sorted scan with break-at-first-ignored).
+    Returns (matched, ignored) [T, total dts]."""
     t_count = len(IOU_THRS)
     total_d = int(nd.sum())
     matched = np.zeros((t_count, total_d), bool)
@@ -117,11 +122,23 @@ def _match_batch(ious_flat, g_ig, iscrowd, d_out, nd, ng):
     return matched, ignored
 
 
+def _match_batch(ious_flat, g_ig, iscrowd, d_out, nd, ng):
+    """The C matcher, or its numpy version on a host that cannot build
+    it."""
+    out = native.coco_match_batch(ious_flat, g_ig, iscrowd, d_out, nd, ng,
+                                  IOU_THRS)
+    if out is not None:
+        return out
+    return _match_batch_plain(ious_flat, g_ig, iscrowd, d_out, nd, ng)
+
+
 class COCOEvaluator:
     """Accumulate detections, then score against a COCOIndex ground truth.
 
     Detections: dicts {image_id, category_id, bbox (tlwh), score} — the COCO
     results-JSON row format the reference emits (engine/build.py:159-164).
+    ``matcher`` is "c" or "numpy" once ``evaluate`` has run: the greedy
+    matcher it used.
     """
 
     def __init__(self, coco_index, img_ids: Optional[Sequence[int]] = None,
@@ -132,6 +149,7 @@ class COCOEvaluator:
             coco_index.get_cat_ids())
         self._dts: Dict[tuple, List[Dict]] = defaultdict(list)
         self.stats: Optional[np.ndarray] = None
+        self.matcher: Optional[str] = None
 
     def add_detection(self, image_id: int, category_id: int,
                       bbox_tlwh: Sequence[float], score: float) -> None:
@@ -181,6 +199,7 @@ class COCOEvaluator:
 
     def evaluate(self, verbose: bool = True) -> np.ndarray:
         """Run the full protocol; returns the 12-entry stats vector."""
+        self.matcher = "c" if native.available() else "numpy"
         t_count, r_count = len(IOU_THRS), len(REC_THRS)
         k_count, a_count, m_count = len(self.cat_ids), len(AREA_ORDER), len(MAX_DETS)
         precision = -np.ones((t_count, r_count, k_count, a_count, m_count))

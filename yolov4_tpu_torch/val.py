@@ -3,8 +3,9 @@
 Usage:
     python -m yolov4_tpu_torch.val COCO [-c configs/yolov4_Tianxiaomo.cfg] \
         [--checkpoint weights.pth.tar] [--conf-thre 0.001] [--nms-thre 0.4] \
-        [--batch-size 16] [--pre-nms-topk 2048] [--max-dets 100] \
-        [--cat-cap 100] [--letterbox] [--quant int8_static] [--device cuda]
+        [--batch-size 16] [--workers 4] [--pre-nms-topk 2048] \
+        [--max-dets 100] [--cat-cap 100] [--approx-topk] [--letterbox] \
+        [--quant int8_static] [--device cuda]
 
 COCO is a directory with ``annotations/instances_val2017.json`` and
 ``images/val2017/{id:012}.jpg``. Runs on CUDA unless ``--device`` names
@@ -13,7 +14,10 @@ another device; a missing card is an error. Weights are a JAX package
 dicts; without one the weights are the reference init from seed 0.
 ``MODEL.PALLAS_CSP`` in the config runs CSP stages 1-3 through the fused
 stage kernel; ``--quant`` (``MODEL.QUANT``) runs the int8 convs, and
-int8_static calibrates its scales on the first batch.
+int8_static calibrates its scales on the first batch. ``--workers``
+overrides DATA.WORKERS, the eval loader's worker processes;
+``--approx-topk`` sets TEST.APPROX_TOPK, which the port accepts, warns
+about and ignores (its top-K stays exact).
 """
 
 from __future__ import annotations
@@ -44,6 +48,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--nms-thre", type=float, default=-0.1)
     parser.add_argument("--batch-size", type=int, default=-1,
                         help="eval batch size (default cfg TEST.BATCH_SIZE)")
+    parser.add_argument("--workers", type=int, default=-1,
+                        help="eval loader worker processes (default cfg "
+                             "DATA.WORKERS)")
     parser.add_argument("--pre-nms-topk", type=int, default=-1,
                         help="candidate cap before NMS (default cfg "
                              "TEST.PRE_NMS_TOPK)")
@@ -54,6 +61,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--cat-cap", type=int, default=-1,
                         help="per-(image,category) scoring cap (default cfg "
                              "TEST.CAT_CAP=100; 0 disables)")
+    parser.add_argument("--approx-topk", action="store_true",
+                        help="cfg TEST.APPROX_TOPK, a TPU option: accepted, "
+                             "warned about and ignored (exact top-K)")
     parser.add_argument("--letterbox", action="store_true",
                         help="aspect-preserving letterbox eval geometry "
                              "(cfg TEST.LETTERBOX)")
@@ -81,12 +91,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
         test["MAX_DETS"] = args.max_dets
     if args.cat_cap >= 0:
         test["CAT_CAP"] = args.cat_cap
+    if args.approx_topk:
+        test["APPROX_TOPK"] = True
     if args.letterbox:
         test["LETTERBOX"] = True
     if args.quant is not None:
         cfg["MODEL"]["QUANT"] = args.quant
     batch_size = (test.get("BATCH_SIZE", 8) if args.batch_size < 0
                   else args.batch_size)
+    workers = cfg["DATA"]["WORKERS"] if args.workers < 0 else args.workers
 
     state_dict = None
     if args.checkpoint:
@@ -99,14 +112,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[float, float]:
     dataset = COCODataset(args.data, img_size=test["IMGSIZE"],
                           transform=Transform(cfg, keep_uint8=True),
                           num_classes=cfg["MODEL"]["N_CLASSES"])
-    loader = DataLoader(dataset, batch_size=batch_size)
-    logger.info(f"val2017: {len(dataset)} images, batch {batch_size}, imgsize "
-                f"{test['IMGSIZE']}, conf {conf}, nms {nms}, device "
-                f"{args.device}, PALLAS_CSP {cfg['MODEL']['PALLAS_CSP']}, "
-                f"QUANT {cfg['MODEL']['QUANT']}")
+    loader = DataLoader(dataset, batch_size=batch_size, num_workers=workers)
+    logger.info(f"val2017: {len(dataset)} images, batch {batch_size}, "
+                f"workers {workers}, imgsize {test['IMGSIZE']}, conf {conf}, "
+                f"nms {nms}, device {args.device}, PALLAS_CSP "
+                f"{cfg['MODEL']['PALLAS_CSP']}, QUANT {cfg['MODEL']['QUANT']}")
     predictor = Predictor(cfg, state_dict=state_dict, batch_size=batch_size,
                           conf_thre=conf, nms_thre=nms, device=args.device)
-    ap, ap50 = validate(loader, predictor)
+    try:
+        ap, ap50 = validate(loader, predictor)
+    finally:
+        loader.close()
     logger.info(f"AP[.50:.95] = {ap:.5f}  AP50 = {ap50:.5f}")
     return ap, ap50
 
