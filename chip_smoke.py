@@ -156,6 +156,39 @@ line:
                (f) ``python -m yolov4_tpu_torch.val --quant int8`` on
                phase 8's synthetic COCO.
 
+ 17. mesh    — the mesh Predictor (parallel/mesh.py; run after phase 15)
+               on phase 7's weights at 608, global batch 16, bfloat16,
+               PALLAS_CSP, conf 0.25: two replicas on cuda:0 (and, with
+               more than one card, one replica on every card), each on its
+               own stream with the NMS span and the int8 abs-max taken
+               over the mesh. K1 once and K2 3 times per replica in the
+               batch; the detections equal, bit for bit, postprocess on
+               the replicas' own forwards, and per image match the
+               one-replica Predictor's at b16 (MESH_MATCH_*: cuDNN may
+               choose other algorithms at b8); K2 on every stage input
+               and K1 on every candidate set that the replicas' b8 shards
+               give them against their plain versions (K2_TOL_*, keep
+               masks equal; ``kernel_inputs``); one replica and the mesh
+               timed in turns per batch (dispatch of a host batch; per
+               call and device ms); what one replica_max costs (host and
+               device us a call, 500 calls against none, the replicas'
+               values differing at every other call and the maxima
+               checked). MODEL.QUANT int8 span full on the two replicas:
+               its int8 error against the one-replica bf16 forward within
+               phase 15's INT8_TOL_VS_CPU of one replica's. Shards whose
+               own maxima differ: far and near boxes through a lookup
+               model (the mesh's rows bit-equal to one replica's on the
+               whole batch, where the near shard alone gives others), and
+               bright and dark images in float32 int8 span full (the dark
+               rows' error against one replica within MESH_AMAX_SHARE* of
+               the same mesh's with per-shard maxima). A
+               ServingRuntime(mesh=...) with buckets 608 and 416 sharing
+               the replicas' weights: K2 and K1 on the 416 bucket's shard
+               inputs against their plain versions, then 96 requests over
+               HTTP from 48 clients: every response equal to the direct
+               mesh predictor's rows on the same batches, K1 and K2 per
+               replica per batch, requests/s.
+
  14. classify — the classifier pretrainer (classify/, darknet_pretrain,
                run after phase 12): (a) two Adam steps of the WIDTH 0.25
                CSPDarknet53 classifier (4 classes, 64x64, batch 4) in
@@ -214,6 +247,7 @@ import math
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -2927,6 +2961,488 @@ def phase_int8(cfg_cls, build_model, Predictor, val_mod, coco_ids,
 
 
 # --------------------------------------------------------------------------
+# Phase 17: the mesh Predictor (parallel/mesh.py) and serve --mesh
+
+MESH_CONF = 0.25                 # phase 13's serving cut
+MESH_SERVE_REQUESTS = 96
+# The mesh's detections against the one-replica Predictor at b16. The
+# replicas run every convolution at b8, where cuDNN may choose another
+# algorithm than at b16, so the two bfloat16 forwards may differ in
+# rounding, and a near-tie in the top-K or the NMS may then go the other
+# way. Per image, every valid row of either side must find one on the
+# other of the same class with IoU >= MESH_MATCH_IOU and a score within
+# MESH_MATCH_SCORE, for at least MESH_MATCH_SHARE of the rows. The mesh's
+# postprocess itself is held bit for bit: the same function on its
+# replicas' concatenated forwards gives its detections.
+MESH_MATCH_IOU = 0.9
+MESH_MATCH_SCORE = 0.02
+MESH_MATCH_SHARE = 0.9
+
+
+def mesh_forward(pred, images):
+    """The decoded predictions [B, N, 85] of a mesh predictor's replicas on
+    their rows of ``images`` (padded), each replica on its own stream with
+    the batch-global maxima taken across them (``ReplicaRunner``, as
+    ``dispatch`` does), joined on the first device."""
+    from yolov4_tpu_torch.engine.predictor import model_input, pad_batch
+    from yolov4_tpu_torch.parallel.mesh import ReplicaRunner
+    host = torch.from_numpy(pad_batch(images, pred.batch_size))
+    shards = pred.mesh.shards(pred.batch_size)
+
+    def replica(rank):
+        device = pred.mesh.devices[rank]
+        model = pred.replicas[device]
+        with torch.inference_mode():
+            x = host[shards[rank]].to(device).permute(0, 3, 1, 2)
+            return model(model_input(model, x)).to(pred.device)
+
+    return torch.cat(ReplicaRunner(pred.mesh).run(replica))
+
+
+def one_forward(pred, images):
+    """The one-replica predictor's decoded predictions on ``images``."""
+    from yolov4_tpu_torch.engine.predictor import model_input
+    with torch.inference_mode():
+        x = pred.upload(images).permute(0, 3, 1, 2)
+        return pred.model(model_input(pred.model, x))
+
+
+def pred_errors(got, want):
+    d = (got.float() - want.float()).abs()
+    return dict(score_mean=float(d[..., 4:].mean()),
+                score_max=float(d[..., 4:].max()),
+                box_mean_px=float(d[..., :4].mean()),
+                box_max_px=float(d[..., :4].max()))
+
+
+def match_shares(a, b):
+    """Per image, the smaller of the two shares of valid rows of ``a`` found
+    in ``b`` and of ``b`` found in ``a`` (same class, IoU >=
+    MESH_MATCH_IOU, score within MESH_MATCH_SCORE)."""
+
+    def found(x, y):
+        if len(x) == 0:
+            return 1.0
+        if len(y) == 0:
+            return 0.0
+        lt = np.maximum(x[:, None, :2], y[None, :, :2])
+        rb = np.minimum(x[:, None, 2:4], y[None, :, 2:4])
+        inter = np.clip(rb - lt, 0, None).prod(-1)
+        area = lambda r: (r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])  # noqa
+        iou = inter / (area(x)[:, None] + area(y)[None] - inter)
+        sx, sy = x[:, 4] * x[:, 5], y[:, 4] * y[:, 5]
+        ok = ((x[:, None, 6] == y[None, :, 6]) & (iou >= MESH_MATCH_IOU)
+              & (np.abs(sx[:, None] - sy[None]) <= MESH_MATCH_SCORE))
+        return float(ok.any(1).mean())
+
+    (da, va), (db, vb) = a, b
+    return [min(found(da[i][va[i]], db[i][vb[i]]),
+                found(db[i][vb[i]], da[i][va[i]])) for i in range(len(da))]
+
+
+def mesh_case(label, pred, one, images, kernels, k2_per_forward,
+              int8_mod=None):
+    """Drive ``pred`` (a mesh predictor) on one batch with the counts set to
+    0 just before and read just after; then hold its detections bit for
+    bit against postprocess on its replicas' forwards and, per image,
+    against the one-replica predictor's at MESH_MATCH_*. Returns the
+    row of the report (its raw predictions and the launches included)."""
+    from yolov4_tpu_torch.ops.postprocess import postprocess
+    nms_cuda, csp_cuda = kernels
+    n = pred.mesh.size
+    torch.cuda.synchronize()
+    nms_cuda.greedy_nms_mask_cuda.launches = 0
+    csp_cuda.fused_csp_stage_cuda.launches = 0
+    if int8_mod is not None:
+        int8_mod.int8_conv.launches = 0
+    got = pred(images)
+    torch.cuda.synchronize()
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches
+    k2 = csp_cuda.fused_csp_stage_cuda.launches
+    n8 = None if int8_mod is None else int8_mod.int8_conv.launches
+    if (k1, k2) != (n, k2_per_forward * n):
+        raise AssertionError(f"{label}: K1 {k1}, K2 {k2} launches in one "
+                             f"batch on {n} replicas (want {n}, "
+                             f"{k2_per_forward * n})")
+    if not (np.isfinite(got[0]).all() and got[1].any()):
+        raise AssertionError(f"{label}: detections not finite or none")
+    raw = mesh_forward(pred, images)
+    with torch.inference_mode():
+        check = postprocess(raw, **pred.settings())
+    check = [t[:len(images)].cpu().numpy() for t in check[:2]]
+    for g, w, name in zip(got, check, ("detections", "valid")):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{label}: the mesh's {name} differ from "
+                                 "postprocess on its replicas' forwards")
+    want = one(images)
+    raw_one = one_forward(one, images)
+    shares = match_shares(got, want)
+    row = dict(label=label, replicas=n,
+               devices=[str(d) for d in pred.mesh.devices],
+               batch=pred.batch_size, k1=k1, k2=k2, int8=n8,
+               valid_rows=int(got[1].sum()),
+               valid_rows_one=int(want[1].sum()),
+               bit_equal_to_one=all(np.array_equal(g, w)
+                                    for g, w in zip(got, want)),
+               forward_vs_one=pred_errors(raw[:len(images)],
+                                          raw_one[:len(images)]),
+               min_match_share=min(shares),
+               mean_match_share=float(np.mean(shares)))
+    log(f"[mesh] {label}: K1 {k1}, K2 {k2}"
+        f"{'' if n8 is None else f', int8 {n8}'} launches in one batch on "
+        f"{n} replicas; detections = postprocess on the replicas' "
+        f"forwards, bit for bit; against one replica at b{one.batch_size}: "
+        f"bit-equal {row['bit_equal_to_one']}, {row['valid_rows']} vs "
+        f"{row['valid_rows_one']} valid rows, match share min "
+        f"{row['min_match_share']:.4f} mean {row['mean_match_share']:.4f}; "
+        f"forwards {row['forward_vs_one']}")
+    return row, raw, raw_one
+
+
+def replica_max_cost(mesh, calls=500):
+    """What one ``replica_max`` costs on ``mesh``: a run of ``calls``
+    maxima on every replica against the same run without them, in host
+    time and in device time (CUDA events around the run, a spin kernel
+    queued ahead so that the events time the card alone); per call. At
+    every other call the replicas' values differ (replica r adds r), so
+    the run's result holds the maxima: each replica must end at
+    ``calls + (n - 1) * (calls // 2)``, where a replica that kept its own
+    value or read a peer's before it was written would end elsewhere."""
+    from yolov4_tpu_torch.ops.replica import replica_max
+    from yolov4_tpu_torch.parallel.mesh import ReplicaRunner
+    runner = ReplicaRunner(mesh)
+
+    def timed(with_max):
+        def fn(rank):
+            v = torch.zeros((), device=mesh.devices[rank])
+            for step in range(calls):
+                v = v + (1 + rank * (step % 2))
+                if with_max:
+                    v = replica_max(v)
+            return v
+
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(RUN_SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        out = runner.run(fn)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return host_ms, start.elapsed_time(end), out
+
+    timed(True)
+    host1, dev1, out = timed(True)
+    want = calls + (mesh.size - 1) * (calls // 2)
+    if any(float(v) != want for v in out):
+        raise AssertionError(f"replica_max: {[float(v) for v in out]}, "
+                             f"want {want} on every replica")
+    host0, dev0, _ = timed(False)
+    return dict(calls=calls, host_us=(host1 - host0) / calls * 1e3,
+                device_us=(dev1 - dev0) / calls * 1e3, host_ms=host1,
+                host_ms_without=host0, device_ms=dev1,
+                device_ms_without=dev0)
+
+
+@contextmanager
+def counts_kept(nms_cuda, csp_cuda):
+    """K1's and K2's launch counts after the block as they were before it
+    (its launches check a kernel, they are not the main path's)."""
+    counts = k_counts(nms_cuda, csp_cuda)
+    try:
+        yield
+    finally:
+        nms_cuda.greedy_nms_mask_cuda.launches = counts[0]
+        csp_cuda.fused_csp_stage_cuda.launches = counts[1]
+
+
+class LookupModel(torch.nn.Module):
+    """A stand-in detector: each image's raw predictions [N, 85], looked up
+    by the image's first byte (tests/test_torch_mesh.py's)."""
+
+    def __init__(self, preds: torch.Tensor):
+        super().__init__()
+        self.register_buffer("preds", preds)
+
+    def forward(self, x):
+        return self.preds[torch.round(x[:, 0, 0, 0] * 255).long()]
+
+
+# the span case's postprocess (tests/test_torch_mesh.py's TEST keys)
+MESH_SPAN_TEST = {"IMGSIZE": 64, "PRE_NMS_TOPK": 64, "MAX_DETS": 50,
+                  "CONFTHRE": 0.05, "NMSTHRE": 0.45}
+
+
+def span_case(n_boxes=64, classes=80):
+    """tests/test_torch_mesh.py's _span_case: 8 images (ids 1-8), the first
+    four with boxes ~3e5 px from the origin, the last four with
+    overlapping boxes inside 64 px. The whole batch's class-offset span
+    (~6e5) puts the small boxes of class 79 near 5e7, where float32's
+    spacing is 4 px, and so changes their IoUs: the NMS keeps other boxes
+    than under their own shard's span (~130)."""
+    rng = np.random.default_rng(5)
+    preds = np.zeros((9, n_boxes, 5 + classes), np.float32)
+    for i in range(1, 9):
+        centre = (rng.uniform(2.9e5, 3.1e5, (n_boxes, 2)) if i <= 4 else
+                  rng.uniform(20, 44, (n_boxes, 2)))
+        wh = rng.uniform(8, 16, (n_boxes, 2))
+        preds[i, :, :4] = np.concatenate([centre, wh], -1)
+        preds[i, :, 4] = rng.uniform(0.3, 1.0, n_boxes)
+        cls = rng.integers(classes - 4, classes, n_boxes)
+        preds[i, np.arange(n_boxes), 5 + cls] = rng.uniform(0.5, 1.0,
+                                                            n_boxes)
+    images = np.zeros((8, 64, 64, 3), np.uint8)
+    images[:, 0, 0, 0] = np.arange(1, 9)
+    return LookupModel(torch.from_numpy(preds)), images
+
+
+def mesh_span_check(cfg_cls, Predictor, mesh, nms_cuda):
+    """The NMS span taken across the replicas on the card, K1 included: on
+    ``span_case``'s batch the mesh's rows equal the one-replica
+    predictor's on the whole batch bit for bit, and the far shard's own
+    span (its four images alone) gives other rows, so a span taken per
+    shard fails the check."""
+    model, images = span_case()
+    model = model.cuda()
+    cfg = cfg_cls.from_dict({"TEST": dict(MESH_SPAN_TEST)})
+
+    def predictor(batch, **kw):
+        return Predictor(cfg, model=model, img_size=64, batch_size=batch,
+                         **kw)
+
+    full = predictor(8, device="cuda")(images)
+    shard = predictor(4, device="cuda")(images[4:])
+    if np.array_equal(shard[1], full[1][4:]):
+        raise AssertionError("span case: the near shard's own span gives the "
+                             "whole batch's rows on the card")
+    before = nms_cuda.greedy_nms_mask_cuda.launches
+    got = predictor(8, mesh=mesh)(images)
+    k1 = nms_cuda.greedy_nms_mask_cuda.launches - before
+    equal = all(np.array_equal(g, w) for g, w in zip(got, full))
+    row = dict(k1=k1, valid=int(got[1].sum()), bit_equal=equal,
+               shard_alone_differs_at=int((shard[1] != full[1][4:]).sum()))
+    log(f"[mesh] span case (far and near shards) on {mesh.size} replicas: "
+        f"{row}")
+    if k1 != mesh.size or not equal:
+        raise AssertionError(f"span case: the mesh's rows differ from one "
+                             f"replica's on the whole batch, or K1 ran "
+                             f"{k1} times: {row}")
+    return row
+
+
+# The dynamic int8 abs-max across the replicas on the card: float32, int8
+# span full (every conv int8 but the stem's and the head's last), bright
+# noise in the first shard and dark images (values 0-31 / 32) in the
+# second, whose own abs-max is far below the batch's. The mesh's decoded
+# forward on the dark rows against one replica's at b16, next to the same
+# mesh with replica_max taken per shard: the mesh's error within
+# MESH_AMAX_SHARE (mean) and MESH_AMAX_SHARE_MAX (max) of the per-shard
+# one's. Not bit for bit: the float convolutions run at b8 on the mesh,
+# where cuDNN may choose another algorithm than at b16, and a float32 ulp
+# there can flip an int8 rounding downstream.
+MESH_AMAX_SHARE = 0.01
+MESH_AMAX_SHARE_MAX = 0.5
+
+
+def mesh_amax_check(cfg_cls, Predictor, sd, mesh, size=608):
+    from yolov4_tpu_torch.models import layers
+    cfg = int8_cfg(cfg_cls, "int8", "full", dtype="float32", pallas=True)
+    images = np.random.default_rng(44).integers(0, 256, (16, size, size, 3),
+                                                dtype=np.uint8)
+    images[8:] //= 32
+    dark = slice(8, 16)
+    with tf32_off():
+        one = Predictor(cfg, state_dict=sd, img_size=size, batch_size=16,
+                        device="cuda")
+        pred = Predictor(cfg, model=one.model, img_size=size, batch_size=16,
+                         mesh=mesh)
+        want = one_forward(one, images)[dark]
+        got = mesh_forward(pred, images)[dark]
+        mesh_max = layers.replica_max
+        layers.replica_max = lambda v: v
+        try:
+            local = mesh_forward(pred, images)[dark]
+        finally:
+            layers.replica_max = mesh_max
+    e_mesh, e_local = pred_errors(got, want), pred_errors(local, want)
+    row = dict(bit_equal=bool(torch.equal(got, want)), error=e_mesh,
+               per_shard_error=e_local)
+    log(f"[mesh] int8 abs-max case (bright and dark shards, float32, span "
+        f"full) on {mesh.size} replicas, dark rows against one replica at "
+        f"b16: {row}")
+    for key, v in e_mesh.items():
+        share = MESH_AMAX_SHARE_MAX if "max" in key else MESH_AMAX_SHARE
+        if not (e_local[key] > 0 and v <= share * e_local[key]):
+            raise AssertionError(f"int8 abs-max case: {key} {v:.4g} against "
+                                 f"{e_local[key]:.4g} with per-shard maxima "
+                                 f"(at most {share}x)")
+    del one, pred
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_timing(pred, images):
+    """(ms, device ms) of one dispatch of a host batch: CUDA events around
+    the call, the host's enqueue included; then behind a spin kernel
+    queued ahead, the card alone."""
+    ms = cuda_ms(lambda: pred.dispatch(images), iters=10)
+    device_ms = cuda_ms(lambda: pred.dispatch(images), iters=10,
+                        queue_ahead=True, spin_cycles=RUN_SPIN_CYCLES)
+    return ms, device_ms
+
+
+def mesh_serve(cfg, sd, mesh, kernels, report):
+    """ServingRuntime(mesh=...) with buckets 608 and 416 sharing the
+    replicas' weights, over HTTP: K1 once and K2 3 times per replica per
+    batch, every response equal to the direct mesh predictor's rows on the
+    same batches, requests/s."""
+    from yolov4_tpu_torch.serve import ServingRuntime
+    runtime = ServingRuntime(cfg, state_dict=sd, sizes=list(SERVE_SIZES),
+                             batch_size=16, conf_thre=MESH_CONF, mesh=mesh)
+    preds = {s: b.predictor for s, b in runtime.buckets.items()}
+    shared = all(preds[608].replicas[d] is preds[416].replicas[d]
+                 for d in mesh.distinct_devices)
+    if not shared:
+        raise AssertionError("the mesh's buckets hold weights of their own")
+    # K2 and K1 on the inputs each replica of the 416 bucket gives them
+    imgs416 = np.random.default_rng(45).integers(0, 256, (16, 416, 416, 3),
+                                                 dtype=np.uint8)
+    inputs416 = kernel_inputs(lambda: preds[416](imgs416), *kernels,
+                              "mesh 416/b16 serving bucket", 3 * mesh.size,
+                              mesh.size)
+    runtime.start(warmup=True)
+    logs = {s: BatchLog(p) for s, p in preds.items()}
+    try:
+        reqs = serve_requests(MESH_SERVE_REQUESTS, seed=41)
+        bodies, m, k1, k2, conv = run_traffic(runtime, reqs, kernels,
+                                              "mesh runtime")
+        batches, n = m["batches"], mesh.size
+        if (k1, k2) != (n * batches, 3 * n * batches):
+            raise AssertionError(f"mesh serving: K1 {k1}, K2 {k2} launches "
+                                 f"for {batches} batches on {n} replicas")
+        wants = [None] * len(reqs)
+        for size in SERVE_SIZES:
+            preds[size].dispatch = logs[size].dispatch
+            idx = [i for i, r in enumerate(reqs) if r[1] == size]
+            for i, want in zip(idx, expected_responses(
+                    runtime, preds[size], logs[size].batches,
+                    [reqs[i] for i in idx])):
+                wants[i] = want
+        m["detections"] = check_responses(bodies, reqs, wants, "mesh")
+        log(f"[mesh] serving on {n} replicas: every response equals the "
+            f"direct mesh predictor's rows ({m['detections']} detections)")
+    finally:
+        runtime.close()
+    report["mesh_serve"] = dict(m, k1=k1, k2=k2, conv=conv, replicas=n,
+                                kernel_inputs=inputs416)
+    del runtime, preds
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+def phase_mesh(cfg_cls, build_model, Predictor, nms_cuda, csp_cuda, smi,
+               report):
+    """Phase 17; returns the (K1, K2) launches of its main paths."""
+    from yolov4_tpu_torch.models.layers import quant_sites
+    from yolov4_tpu_torch.ops import int8 as int8_mod
+    from yolov4_tpu_torch.parallel.mesh import create_mesh
+    t_phase = time.time()
+    kernels = (nms_cuda, csp_cuda)
+    sd = int8_weights(cfg_cls, build_model)
+    cfg = int8_cfg(cfg_cls, "none", pallas=True)
+    images = np.random.default_rng(43).integers(0, 256, (16, 608, 608, 3),
+                                                dtype=np.uint8)
+    meshes = [("two replicas on cuda:0", create_mesh(["cuda:0"] * 2))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"every card ({torch.cuda.device_count()})",
+                       create_mesh()))
+    one = Predictor(cfg, state_dict=sd, img_size=608, batch_size=16,
+                    conf_thre=MESH_CONF, device="cuda")
+    one.warmup()
+    rows, k1, k2, timing = [], 0, 0, {}
+    for label, mesh in meshes:
+        # the replicas on one.model's card run one.model itself
+        pred = Predictor(cfg, model=one.model, img_size=608, batch_size=16,
+                         conf_thre=MESH_CONF, mesh=mesh)
+        pred.warmup()
+        row, raw, raw_one = mesh_case(label, pred, one, images, kernels, 3)
+        if row["min_match_share"] < MESH_MATCH_SHARE:
+            raise AssertionError(f"{label}: an image shares only "
+                                 f"{row['min_match_share']:.3f} of its "
+                                 "detections with one replica's")
+        k1, k2 = k1 + row["k1"], k2 + row["k2"]
+        # K2 and K1 on the inputs each replica gives them (b8 shards)
+        row["kernel_inputs"] = kernel_inputs(
+            lambda: pred(images), nms_cuda, csp_cuda, f"{label} 608/b16",
+            3 * mesh.size, mesh.size)
+        # in turns: one replica, the mesh, the mesh, one replica
+        for name, p in (("one", one), ("mesh", pred), ("mesh", pred),
+                        ("one", one)):
+            timing.setdefault((label, name), []).append(
+                mesh_timing(p, images))
+        row["ms"], row["device_ms"] = (
+            [t[i] for t in timing[(label, "mesh")]] for i in (0, 1))
+        row["one_ms"], row["one_device_ms"] = (
+            [t[i] for t in timing[(label, "one")]] for i in (0, 1))
+        row["replica_max"] = cost = replica_max_cost(mesh)
+        log(f"[mesh] {smi}: 608/b16 bf16 PALLAS_CSP per batch (dispatch "
+            f"of a host batch), in turns: one replica {row['one_ms']} ms, "
+            f"device {row['one_device_ms']} ms; {label} {row['ms']} ms, "
+            f"device {row['device_ms']} ms; one replica_max "
+            f"{cost['host_us']:.1f} us of host time, {cost['device_us']:.1f} "
+            f"us of device time")
+        rows.append(row)
+        del pred, raw, raw_one
+    # int8 span full on the two-replica mesh: held against one replica with
+    # phase 15's tolerance (INT8_TOL_VS_CPU): the mesh's int8 error against
+    # the one-replica bf16 forward within that factor of one replica's own
+    base = one_forward(one, images)
+    del one
+    torch.cuda.empty_cache()
+    cfg8 = int8_cfg(cfg_cls, "int8", "full", pallas=True)
+    one8 = Predictor(cfg8, state_dict=sd, img_size=608, batch_size=16,
+                     conf_thre=MESH_CONF, device="cuda")
+    mesh8 = Predictor(cfg8, model=one8.model, img_size=608, batch_size=16,
+                      conf_thre=MESH_CONF, mesh=meshes[0][1])
+    one8.warmup()
+    mesh8.warmup()
+    sites = len(quant_sites(one8.model))
+    row8, raw8, raw8_one = mesh_case("int8 span full, two replicas",
+                                     mesh8, one8, images, kernels, 0,
+                                     int8_mod)
+    if row8["int8"] != sites * mesh8.mesh.size:
+        raise AssertionError(f"int8 mesh: {row8['int8']} products for "
+                             f"{sites} sites on {mesh8.mesh.size} replicas")
+    e_mesh = pred_errors(raw8[:len(images)], base)
+    e_one = pred_errors(raw8_one, base)
+    ulp = 2.0 ** (math.floor(math.log2(float(base.abs().max()))) - 7)
+    for key in e_one:
+        extra = ulp if key.endswith("max") or key.endswith("max_px") else 0.0
+        if e_mesh[key] > INT8_TOL_VS_CPU * e_one[key] + extra:
+            raise AssertionError(f"int8 mesh: {key} error against bf16 "
+                                 f"{e_mesh[key]:.4g} exceeds "
+                                 f"{INT8_TOL_VS_CPU}x one replica's "
+                                 f"{e_one[key]:.4g} (+ {extra:.4g})")
+    row8.update(error_vs_bf16=e_mesh, one_error_vs_bf16=e_one, sites=sites)
+    log(f"[mesh] int8 span full: error against the bf16 forward, mesh "
+        f"{e_mesh}, one replica {e_one}")
+    k1, k2 = k1 + row8["k1"], k2 + row8["k2"]
+    del one8, mesh8, raw8, raw8_one, base
+    torch.cuda.empty_cache()
+    # the maxima across the replicas on shards whose own maxima differ
+    with counts_kept(nms_cuda, csp_cuda):
+        span = mesh_span_check(cfg_cls, Predictor, meshes[0][1], nms_cuda)
+        amax = mesh_amax_check(cfg_cls, Predictor, sd, meshes[0][1])
+    serve_k1, serve_k2 = mesh_serve(cfg, sd, meshes[0][1], kernels, report)
+    report["mesh"] = dict(card=smi, rows=rows, int8=row8, span_case=span,
+                          amax_case=amax, seconds=time.time() - t_phase)
+    log(f"[mesh] phase 17 in {report['mesh']['seconds']:.1f}s")
+    return k1 + serve_k1, k2 + serve_k2
+
+
+# --------------------------------------------------------------------------
 # Phase 14: the classifier pretrainer (classify/, darknet_pretrain)
 
 CLS_CLASSES = 4                 # (a), (b) and the CLI's ImageFolder
@@ -3482,72 +3998,102 @@ def learn_quant(cfg, args, weights, smi, report):
     return q["bf16"]
 
 
-def learn_kernel_inputs(cfg, args, weights, nms_cuda, csp_cuda, report):
-    """K2 on each stage's input and K1 on the candidates that one held-out
-    batch of ``cfg``'s Predictor gives them (320/b8, trained weights),
-    against their plain versions: K2 in float32 and bfloat16 within
-    K2_TOL_*, K1's keep mask equal. These launches are comparisons, so the
-    launch counts are put back as they were."""
-    from yolov4_tpu_torch.engine.predictor import Predictor
+@contextmanager
+def captured_kernel_inputs(stages, cands):
+    """Inside the block every K2 launch of the model's layers and every K1
+    launch of the postprocess, from any thread, first appends its inputs
+    (cloned) and the thread's name to ``stages`` or ``cands``."""
     from yolov4_tpu_torch.models import layers
     from yolov4_tpu_torch.ops import postprocess
-    from yolov4_tpu_torch.ops.csp import fused_csp_stage_plain
-    from yolov4_tpu_torch.ops.nms import greedy_nms_mask
-    from yolov4_tpu_torch.tools.overfit_smoke import CONF, NMS, eval_loader
-    counts = k_counts(nms_cuda, csp_cuda)
-    imgs, _ = next(iter(eval_loader(cfg, args.root, "val2017",
-                                    args.img_size, args.batch_size)))
-    pred = Predictor(cfg, state_dict=weights, img_size=args.img_size,
-                     batch_size=args.batch_size, conf_thre=CONF, nms_thre=NMS,
-                     device="cuda")
     k2, k1 = layers.fused_csp_stage_cuda, postprocess.greedy_nms_mask_cuda
-    stages, cands = [], []
 
     def capture_k2(x, folded, nb, packed):
-        stages.append((x.clone(), folded, nb, packed))
+        stages.append((threading.current_thread().name, x.clone(), folded,
+                       nb, packed))
         return k2(x, folded, nb, packed)
 
     def capture_k1(boxes, valid, t):
-        cands.append((boxes.clone(), valid.clone(), t))
+        cands.append((threading.current_thread().name, boxes.clone(),
+                      valid.clone(), t))
         return k1(boxes, valid, t)
 
     layers.fused_csp_stage_cuda = capture_k2
     postprocess.greedy_nms_mask_cuda = capture_k1
     try:
-        pred(imgs)
+        yield
     finally:
         layers.fused_csp_stage_cuda, postprocess.greedy_nms_mask_cuda = k2, k1
-    if len(stages) != 3 or len(cands) != 1 or not bool(cands[0][1].any()):
-        raise AssertionError(f"one held-out batch gave K2 {len(stages)} and "
-                             f"K1 {len(cands)} inputs, "
-                             f"{[int(c[1].sum()) for c in cands]} candidates")
-    rows = []
+
+
+def kernel_inputs(run, nms_cuda, csp_cuda, label, n_k2, n_k1):
+    """K2 on each stage input and K1 on each candidate set that ``run()``
+    gives them (one batch of a Predictor), against their plain versions:
+    K2 in float32 and bfloat16 within K2_TOL_*, K1's keep mask equal.
+    ``run()`` must launch K2 ``n_k2`` and K1 ``n_k1`` times. These launches
+    are comparisons, so the launch counts are put back as they were.
+    Returns {"k2": rows, "k1": rows}; a K2 row's ``stage`` is its place in
+    its thread's forward."""
+    from yolov4_tpu_torch.ops.csp import fused_csp_stage_plain
+    from yolov4_tpu_torch.ops.nms import greedy_nms_mask
+    counts = k_counts(nms_cuda, csp_cuda)
+    stages, cands = [], []
+    with captured_kernel_inputs(stages, cands):
+        run()
+    torch.cuda.synchronize()
+    if (len(stages) != n_k2 or len(cands) != n_k1
+            or not all(bool(c[2].any()) for c in cands)):
+        raise AssertionError(f"{label}: one batch gave K2 {len(stages)} and "
+                             f"K1 {len(cands)} inputs (want {n_k2}, {n_k1}), "
+                             f"{[int(c[2].sum()) for c in cands]} candidates")
+    rows, k1_rows, seen = [], [], {}
     with tf32_off(), torch.inference_mode():
-        for name, (x, folded, nb, packed) in zip(
-                ("stage1", "stage2", "stage3"), stages):
+        for who, x, folded, nb, packed in stages:
+            seen[who] = seen.get(who, 0) + 1
+            name = f"stage{seen[who]}"
             for dt in (torch.float32, torch.bfloat16):
-                res = check_k2(csp_cuda, fused_csp_stage_plain, x.to(dt),
-                               folded, nb, packed if x.dtype == dt else None,
-                               f"{name} 320/b8 trained {str(dt)[6:]}")
-                rows.append(dict(stage=name, shape=list(x.shape),
+                with torch.cuda.device(x.device):
+                    res = check_k2(csp_cuda, fused_csp_stage_plain, x.to(dt),
+                                   folded, nb,
+                                   packed if x.dtype == dt else None,
+                                   f"{name} {label} {who} {str(dt)[6:]}")
+                rows.append(dict(thread=who, stage=name, shape=list(x.shape),
                                  num_blocks=nb, dtype=str(dt)[6:], **res))
-        boxes, valid, t = cands[0]
-        got = nms_cuda.greedy_nms_mask_cuda(boxes, valid, t)
-        torch.cuda.synchronize()
-        want = greedy_nms_mask(boxes, valid, t)
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 on a held-out batch's candidates "
-                             f"{tuple(boxes.shape)}: keep masks differ at "
-                             f"{int((got != want).sum())} positions")
+        for who, boxes, valid, t in cands:
+            with torch.cuda.device(boxes.device):
+                got = nms_cuda.greedy_nms_mask_cuda(boxes, valid, t)
+                torch.cuda.synchronize()
+            want = greedy_nms_mask(boxes, valid, t)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K1 on {label}'s candidates {tuple(boxes.shape)} "
+                    f"({who}): keep masks differ at "
+                    f"{int((got != want).sum())} positions")
+            k1_rows.append(dict(thread=who, shape=list(boxes.shape), t=t,
+                                valid=int(valid.sum()), kept=int(got.sum())))
     nms_cuda.greedy_nms_mask_cuda.launches = counts[0]
     csp_cuda.fused_csp_stage_cuda.launches = counts[1]
-    k1_row = dict(shape=list(boxes.shape), t=t, valid=int(valid.sum()),
-                  kept=int(got.sum()))
-    log(f"[learning] (d) on one held-out batch's inputs: K2 within its "
-        f"tolerances at {[r['shape'] for r in rows[::2]]} in float32 and "
-        f"bfloat16 (max_abs_err {max(r['max_abs_err'] for r in rows):.4g}); "
-        f"K1's keep mask equal to the plain version's ({k1_row})")
-    report["learning"]["kernel_inputs"] = dict(k2=rows, k1=k1_row)
+    log(f"[kernel inputs] {label}: K2 within its tolerances at "
+        f"{[r['shape'] for r in rows[::2]]} in float32 and bfloat16 "
+        f"(max_abs_err {max(r['max_abs_err'] for r in rows):.4g}); K1's keep "
+        f"masks equal to the plain version's ({k1_rows})")
+    return dict(k2=rows, k1=k1_rows)
+
+
+def learn_kernel_inputs(cfg, args, weights, nms_cuda, csp_cuda, report):
+    """K2 on each stage's input and K1 on the candidates that one held-out
+    batch of ``cfg``'s Predictor gives them (320/b8, trained weights),
+    against their plain versions (``kernel_inputs``)."""
+    from yolov4_tpu_torch.engine.predictor import Predictor
+    from yolov4_tpu_torch.tools.overfit_smoke import CONF, NMS, eval_loader
+    imgs, _ = next(iter(eval_loader(cfg, args.root, "val2017",
+                                    args.img_size, args.batch_size)))
+    pred = Predictor(cfg, state_dict=weights, img_size=args.img_size,
+                     batch_size=args.batch_size, conf_thre=CONF, nms_thre=NMS,
+                     device="cuda")
+    report["learning"]["kernel_inputs"] = kernel_inputs(
+        lambda: pred(imgs), nms_cuda, csp_cuda,
+        f"one held-out batch {args.img_size}/b{args.batch_size} trained",
+        3, 1)
 
 
 def learn_k2(cfg, args, weights, bf16, nms_cuda, csp_cuda, smi, report):
@@ -3831,6 +4377,8 @@ def main() -> int:
     int8_k1, int8_k2, int8_n, int8_products = phase_int8(
         Config, build_model, Predictor, val_mod, COCO_CLASS_IDS, nms_cuda,
         csp_cuda, smi, report)
+    mesh_k1, mesh_k2 = phase_mesh(Config, build_model, Predictor, nms_cuda,
+                                  csp_cuda, smi, report)
     train = train_api()
     phase_train_vs_cpu(Config, build_model, train, report)
     phase_train_full(Config, build_model, train, report)
@@ -3862,11 +4410,13 @@ def main() -> int:
         # Trainer runs and their resumes; of them, the runs with
         # AUGMENTATION.DEVICE), phase 12's data-parallel validations,
         # phase 14's detector batch on the classifier's backbone,
-        # phase 15's int8 runs (Predictor, serving, val) and phase 16's
-        # learning smokes, their scoring, the export check and the gate
+        # phase 15's int8 runs (Predictor, serving, val), phase 17's mesh
+        # batches and mesh serving (one per replica per batch) and phase
+        # 16's learning smokes, their scoring, the export check and the gate
         "launches": (launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1
-                     + int8_k1 + learn_n1),
+                     + int8_k1 + mesh_k1 + learn_n1),
         "launches_in_serving": serve_k1,
+        "launches_in_mesh": mesh_k1,
         "launches_in_learning": learn_n1,
         "launches_in_int8": int8_k1,
         "launches_in_serving_by_run": {k: v[0] for k, v in
@@ -3899,10 +4449,12 @@ def main() -> int:
         # val's batches, the serving phase's, the Trainer's validations,
         # phase 12's and phase 15's (2 a forward under QUANT_SPAN late,
         # none under full; phase 14's detector batch runs without
-        # PALLAS_CSP) and phase 16's PALLAS_CSP scoring of trained weights
+        # PALLAS_CSP), phase 17's (3 a replica's forward) and phase 16's
+        # PALLAS_CSP scoring of trained weights
         "launches": (k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2
-                     + int8_k2 + learn_n2),
+                     + int8_k2 + mesh_k2 + learn_n2),
         "launches_in_serving": serve_k2,
+        "launches_in_mesh": mesh_k2,
         "launches_in_learning": learn_n2,
         "launches_in_int8": int8_k2,
         "launches_per_int8_forward": {"late": 2, "full": 0},
@@ -3918,6 +4470,13 @@ def main() -> int:
         "max_abs_err_learning": max(
             r["max_abs_err"]
             for r in report["learning"]["kernel_inputs"]["k2"]),
+        # phase 17: each replica's stage inputs of a mesh batch at 608/b16
+        # and of the 416 serving bucket's (b8 shards), float32 and bfloat16
+        "max_abs_err_mesh": max(
+            r["max_abs_err"]
+            for ki in ([row["kernel_inputs"] for row in report["mesh"]["rows"]]
+                       + [report["mesh_serve"]["kernel_inputs"]])
+            for r in ki["k2"]),
         "ms": sum(r["ms"] for r in stages),
         "device_ms": sum(r["device_ms"] for r in stages),
         "plain_ms": sum(r["plain_ms"] for r in stages),

@@ -37,6 +37,7 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "data.pipeline", "engine.evaluator", "utils.logging",
                  "utils.metrics", "val", "ops.loss", "optim.optimizers",
                  "optim.schedules", "parallel.train_step", "parallel.dist",
+                 "parallel.mesh",
                  "utils.checkpoint", "utils.profiling", "engine.trainer",
                  "train", "utils.msgpack", "utils.export", "serve",
                  "serve.metrics", "serve.batcher", "serve.server",
@@ -46,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "ops.int8",
                  "darknet_pretrain", "native", "data.synthetic",
                  "tools.overfit_smoke", "tools.generalization_smoke",
-                 "tools.run_coco_gate", "tools.export_torch"):
+                 "tools.run_coco_gate", "tools.export_torch",
+                 "ops.replica", "utils.device"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]
     assert len(result["modules"]) >= 30
     assert result["forbidden"] == []

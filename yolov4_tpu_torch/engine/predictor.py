@@ -24,23 +24,31 @@ recorded from (a reload) calibrates again, ``warmup`` runs on seed scales
 it never publishes, and ``quant_state`` publishes the calibrated scales
 for another predictor (or an export) to keep. Predictors sharing one
 model (the serving runtime's buckets) keep scales of their own.
+
+With a ``mesh`` of several replicas (parallel/mesh.py) ``dispatch`` shards
+each batch over them, as the JAX package's mesh predictor does, with the
+batch-global maxima taken over the whole mesh (``Predictor``).
 """
 
 from __future__ import annotations
 
+import copy
 from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from yolov4_tpu_torch.models import build_model
-from yolov4_tpu_torch.models.layers import (ConvBNAct, quant_entries,
-                                            quant_scope)
+from yolov4_tpu_torch.models.layers import (ConvBNAct, prefold_stages,
+                                            quant_entries, quant_scope)
 from yolov4_tpu_torch.models.yolov4 import quant_mode
 from yolov4_tpu_torch.ops.postprocess import postprocess
+from yolov4_tpu_torch.parallel.mesh import Mesh, ReplicaRunner
+# the entry points import the device rule from here
+from yolov4_tpu_torch.utils.device import device_scope, resolve_device
 
 QuantState = Dict[str, Dict[str, torch.Tensor]]
 
@@ -128,6 +136,11 @@ class Dispatched:
     event: Optional["torch.cuda.Event"]
 
 
+def _check_uint8(images: np.ndarray) -> None:
+    if images.dtype != np.uint8:
+        raise TypeError(f"images must be uint8 NHWC, got {images.dtype}")
+
+
 def upload_nhwc(images: np.ndarray, batch_size: int,
                 device: torch.device) -> torch.Tensor:
     """Pad an NHWC host batch and copy it to ``device`` (through pinned
@@ -163,61 +176,75 @@ def fetch_local(out: Dispatched) -> Tuple[np.ndarray, ...]:
     return tuple(h.numpy() for h in out.host)
 
 
-def device_scope(device: torch.device):
-    """Make ``device`` the current card of the calling thread (new threads
-    start on card 0)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return nullcontext()
-
-
-def resolve_device(device=None) -> torch.device:
-    """The entry points' device rule: CUDA unless the caller names another
-    device (``cuda:N`` for a rank's card). Asking for CUDA where there is
-    none, or for a card index that does not exist, raises; nothing falls
-    back to the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA was requested but torch.cuda.is_available() "
-                           "is False; pass device='cpu' to run on the CPU")
-    if (device.type == "cuda" and device.index is not None
-            and device.index >= torch.cuda.device_count()):
-        raise RuntimeError(f"{device} was requested but there are "
-                           f"{torch.cuda.device_count()} CUDA device(s)")
-    return device
-
-
 class Predictor:
-    """Static-batch detector on one device.
+    """Static-batch detector on one device, or sharded over a mesh.
 
     ``state_dict``: weights in the port's (= the reference's) key layout;
     None keeps the reference init drawn from seed 0 (``build_model``).
     ``model``: an already built and loaded model to share (the serving
-    runtime's buckets share one set of weights on the card); ``cfg`` and
-    ``state_dict`` then do not build it again. ``device``: None means
-    CUDA. ``quant_state``: int8_static scales a calibrated predictor
-    published (``quant_state``), kept for these weights instead of
-    calibrating on the first batch.
+    runtime's buckets share one set of weights on the card), or another
+    mesh predictor's ``replicas``; ``cfg`` and ``state_dict`` then do not
+    build it again. ``device``: None means CUDA. ``quant_state``:
+    int8_static scales a calibrated predictor published (``quant_state``),
+    kept for these weights instead of calibrating on the first batch.
+
+    ``mesh`` (parallel/mesh.create_mesh) of more than one replica: the JAX
+    package's mesh predictor in one process. ``batch_size`` is rounded up
+    to a whole number of rows per replica. Each distinct device of the
+    mesh holds one copy of the weights (``replicas``; the others are
+    copied from the first when the predictor is built, so later changes to
+    ``model``'s weights do not reach them). ``dispatch`` gives each replica
+    its rows, on its device, in a host thread and a CUDA stream of its
+    own (parallel/mesh.ReplicaRunner), and the batch-global maxima (the
+    NMS's class-offset span, the dynamic int8 abs-max) are taken over the
+    whole mesh, so that the rows equal the unsharded predictor's on the
+    same batch. The predictor's ``device`` is the mesh's first
+    (``device`` must not be given as well); a mesh of one replica is that
+    device alone. ``run``, ``run_wire`` and ``program`` stay the program
+    on ``device`` alone.
     """
 
     def __init__(self, cfg: Dict, state_dict: Optional[Dict] = None,
                  img_size: Optional[int] = None, batch_size: int = 8,
                  conf_thre: Optional[float] = None,
                  nms_thre: Optional[float] = None,
-                 device=None, model: Optional[nn.Module] = None,
-                 quant_state: Optional[QuantState] = None):
+                 device=None,
+                 model: Union[nn.Module, Dict[torch.device, nn.Module],
+                              None] = None,
+                 quant_state: Optional[QuantState] = None,
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass device or mesh, not both")
+            device = mesh.devices[0]
+            batch_size = mesh.round_batch(batch_size)
+            mesh = mesh if mesh.size > 1 else None
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
-        if model is None:
-            model = build_model(cfg, device=self.device)
-            if state_dict is not None:
-                model.load_state_dict(state_dict)
-            model.eval()
-            if self.device.type == "cuda":
-                model = model.to(memory_format=torch.channels_last)
-        elif state_dict is not None:
+        if model is not None and state_dict is not None:
             raise ValueError("pass state_dict or model, not both")
-        self.model = model
+        devices = (self.device,) if mesh is None else mesh.distinct_devices
+        if isinstance(model, dict):
+            if set(model) != set(devices):
+                raise ValueError(f"replicas on {sorted(map(str, model))} "
+                                 f"for devices {[str(d) for d in devices]}")
+            replicas = model
+        else:
+            if model is None:
+                model = build_model(cfg, device=self.device)
+                if state_dict is not None:
+                    model.load_state_dict(state_dict)
+                model.eval()
+                if self.device.type == "cuda":
+                    model = model.to(memory_format=torch.channels_last)
+            replicas = {self.device: model}
+            for d in devices[1:]:
+                replicas[d] = copy.deepcopy(model).to(d)
+        self.replicas: Dict[torch.device, nn.Module] = {
+            d: replicas[d] for d in devices}
+        self.model = self.replicas[self.device]
+        self._runner = None if mesh is None else ReplicaRunner(mesh)
         self.img_size = img_size or cfg["TEST"]["IMGSIZE"]
         self.batch_size = batch_size
         test = cfg["TEST"]
@@ -233,12 +260,12 @@ class Predictor:
         self.count_relevant = bool(self.cat_cap
                                    and self.max_dets > self.cat_cap)
         self.quant = quant_mode(cfg["MODEL"])
-        # int8_static: the calibrated scales with the key of the weights
-        # they were recorded from, and warmup's seed scales (never
-        # published)
-        self._quant: Optional[QuantState] = None
+        # int8_static: the calibrated scales of each replica's device with
+        # the key of the weights they were recorded from, and warmup's
+        # seed scales (never published)
+        self._quant: Optional[Dict[torch.device, QuantState]] = None
         self._quant_key = None
-        self._quant_seed: Optional[QuantState] = None
+        self._quant_seed: Optional[Dict[torch.device, QuantState]] = None
         self._site_tensors = None
         if quant_state is not None:
             self.quant_state = quant_state
@@ -256,6 +283,11 @@ class Predictor:
                           m.norm.running_mean, m.norm.running_var)]
         return tuple((t.data_ptr(), t._version) for t in self._site_tensors)
 
+    def _entries(self, raw: QuantState) -> Dict[torch.device, QuantState]:
+        """An int8_static state for each replica's device from the same
+        calibrated {amax, wq, sw}."""
+        return {d: quant_entries(m, raw) for d, m in self.replicas.items()}
+
     @property
     def quant_ready(self) -> bool:
         """Whether the program can run: True unless int8_static scales are
@@ -272,7 +304,7 @@ class Predictor:
         if self.quant != "int8_static" or not self.quant_ready:
             return None
         return {name: {k: e[k] for k in ("amax", "wq", "sw")}
-                for name, e in self._quant.items()}
+                for name, e in self._quant[self.device].items()}
 
     @quant_state.setter
     def quant_state(self, raw: QuantState) -> None:
@@ -281,7 +313,7 @@ class Predictor:
         if self.quant != "int8_static":
             raise ValueError(f"MODEL.QUANT {self.quant!r} takes no "
                              "calibrated state")
-        self._quant = quant_entries(self.model, raw)
+        self._quant = self._entries(raw)
         self._quant_key = self._weights_key()
 
     @torch.inference_mode()
@@ -291,10 +323,14 @@ class Predictor:
         [B <= batch_size, S, S, 3], padded to batch_size as served. Call it
         again to take in more batches: the scales only grow. Beyond them
         values clip to +-127 when served. ``mark_ready=False`` records
-        warmup's seed scales instead. A no-op unless int8_static."""
+        warmup's seed scales instead. A no-op unless int8_static. A mesh
+        predictor records on its first replica's device from the whole
+        batch (the max over the shards is the max over the batch) and
+        gives every replica those scales."""
         if self.quant != "int8_static":
             return
-        base = self._quant if (mark_ready and self.quant_ready) else None
+        base = (self._quant[self.device]
+                if (mark_ready and self.quant_ready) else None)
         raw = {} if base is None else {
             name: {k: e[k] for k in ("amax", "wq", "sw")}
             for name, e in base.items()}
@@ -302,7 +338,7 @@ class Predictor:
             x = self.upload(images).permute(0, 3, 1, 2)
             with quant_scope(raw, recording=True):
                 self.model(model_input(self.model, x))
-            state = quant_entries(self.model, raw)
+            state = self._entries(raw)
         if mark_ready:
             self._quant, self._quant_key = state, self._weights_key()
         else:
@@ -315,12 +351,15 @@ class Predictor:
                 "weights: call calibrate() (dispatch() does on its first "
                 "batch)")
 
-    def _scope(self, state: Optional[QuantState] = None):
+    def _scope(self, device: torch.device,
+               state: Optional[QuantState] = None):
+        """The int8_static scales of the replica on ``device``: the
+        calibrated ones, or ``state``."""
         if self.quant != "int8_static":
             return nullcontext()
         if state is None:
             self._require_calibrated()
-            state = self._quant
+            state = self._quant[device]
         return quant_scope(state)
 
     @property
@@ -341,14 +380,14 @@ class Predictor:
         scales), as a module."""
         self._require_calibrated()
         return DetectionProgram(self.model, self.img_size, self.settings(),
-                                self._quant if self.quant == "int8_static"
-                                else None)
+                                self._quant[self.device]
+                                if self.quant == "int8_static" else None)
 
     @torch.inference_mode()
     def run_wire(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The device program on a planar wire device batch [B, 3*S*S].
         Returns device tensors (detections, valid[, relevant_count])."""
-        with self._scope():
+        with self._scope(self.device):
             return detection_program(self.model, flat, self.img_size,
                                      self.settings())
 
@@ -361,14 +400,13 @@ class Predictor:
         forward, decode, postprocess. The same function as ``run_wire``
         on the batch's planar wire. int8_static runs on the calibrated
         scales, or on ``quant_state`` when given."""
-        with self._scope(quant_state):
+        with self._scope(self.device, quant_state):
             return detection_forward(self.model, images.permute(0, 3, 1, 2),
                                      self.settings())
 
     def upload(self, images: np.ndarray) -> torch.Tensor:
         """Pad a uint8 NHWC host batch and copy it to the device."""
-        if images.dtype != np.uint8:
-            raise TypeError(f"images must be uint8 NHWC, got {images.dtype}")
+        _check_uint8(images)
         return upload_nhwc(images, self.batch_size, self.device)
 
     def dispatch(self, images: np.ndarray) -> Dispatched:
@@ -378,8 +416,51 @@ class Predictor:
         weights calibrates on this batch first."""
         if not self.quant_ready:
             self.calibrate(images)
+        if self.mesh is not None:
+            return self._dispatch_mesh(images)
         with device_scope(self.device):
             return start_fetch(self.run(self.upload(images)), self.device)
+
+    @torch.inference_mode()
+    def _dispatch_mesh(self, images: np.ndarray,
+                       seed: Optional[Dict[torch.device, QuantState]] = None
+                       ) -> Dispatched:
+        """``dispatch`` over the mesh: the padded batch is pinned once;
+        each replica uploads its rows to its device, runs the program on
+        them and copies its outputs to the first device, where they are
+        joined in mesh order. int8_static runs on the calibrated scales,
+        or on ``seed``'s."""
+        _check_uint8(images)
+        host = torch.from_numpy(pad_batch(images, self.batch_size))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        shards = self.mesh.shards(self.batch_size)
+        settings = self.settings()
+        for model in self.replicas.values():
+            # replicas sharing a card share its model: fold K2's weights
+            # here, on this thread's stream, which every replica stream
+            # waits for, and never in two replica threads at once
+            prefold_stages(model)
+
+        def replica(rank: int) -> Tuple[torch.Tensor, ...]:
+            device = self.mesh.devices[rank]
+            with torch.inference_mode(), self._scope(
+                    device, None if seed is None else seed[device]):
+                x = host[shards[rank]].to(device, non_blocking=True)
+                outs = detection_forward(self.replicas[device],
+                                         x.permute(0, 3, 1, 2), settings)
+            return tuple(o.to(self.device, non_blocking=True) for o in outs)
+
+        parts = self._runner.run(replica)
+        with device_scope(self.device):
+            if self.device.type == "cuda":
+                # made on the replicas' streams, read on this one: their
+                # blocks are not reused before it has read them
+                stream = torch.cuda.current_stream(self.device)
+                for o in (o for part in parts for o in part):
+                    o.record_stream(stream)
+            outs = tuple(torch.cat(group) for group in zip(*parts))
+            return start_fetch(outs, self.device)
 
     fetch_local = staticmethod(fetch_local)
 
@@ -396,8 +477,12 @@ class Predictor:
             if self._quant_seed is None:
                 self.calibrate(zeros, mark_ready=False)
             seed = self._quant_seed
+        if self.mesh is not None:
+            self.fetch_local(self._dispatch_mesh(zeros, seed))
+            return
         with device_scope(self.device):
-            out = self.run(self.upload(zeros), seed)
+            out = self.run(self.upload(zeros),
+                           None if seed is None else seed[self.device])
             self.fetch_local(start_fetch(out, self.device))
 
     def __call__(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -45,6 +45,7 @@ from yolov4_tpu_torch.ops.csp_cuda import (fused_csp_stage_cuda,
 from yolov4_tpu_torch.ops.int8 import (activation_scale, int8_conv,
                                        quantize_activation,
                                        quantize_weights)
+from yolov4_tpu_torch.ops.replica import replica_max
 from yolov4_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -341,7 +342,8 @@ class ConvBNAct(nn.Module):
         entry, record = self._state()
         if entry is None:
             wq, sw, bias = self.quantized_weights()
-            amax = xf.abs().amax()
+            # the whole batch's abs-max, over a mesh's replicas too
+            amax = replica_max(xf.abs().amax())
             if record is not None:
                 self._record(record, amax, wq, sw)
             sx = activation_scale(amax)
@@ -447,13 +449,24 @@ class _CSPStage(nn.Module):
             self._fold_cache = (key, folded, packed)
         return self._fold_cache[1:]
 
-    def freeze(self) -> None:
-        """Fold and pack now, in the dtype and on the device of the base
-        conv's weights (the body's input), and hold the result until
-        :meth:`thaw`; a stage whose body would not go through K2 holds
-        nothing."""
+    def _probe(self) -> torch.Tensor:
+        """An empty tensor in the dtype and on the device of the base
+        conv's weights: those of the body's input."""
         w = self.base.conv.weight
-        probe = w.new_empty((1, w.shape[0], 1, 1))
+        return w.new_empty((1, w.shape[0], 1, 1))
+
+    def prefold(self) -> None:
+        """Fold and pack into the cache now, for the body's input, if the
+        body would go through K2."""
+        probe = self._probe()
+        if self._fuses(probe):
+            self.folded_weights(probe)
+
+    def freeze(self) -> None:
+        """Fold and pack now, for the body's input, and hold the result
+        until :meth:`thaw`; a stage whose body would not go through K2
+        holds nothing."""
+        probe = self._probe()
         self._frozen = None
         if self._fuses(probe):
             self._frozen = self.folded_weights(probe)
@@ -483,6 +496,16 @@ class _CSPStage(nn.Module):
         folded, packed = self.folded_weights(x)
         out = fused_csp_stage_cuda(nhwc, folded, self.num_blocks, packed)
         return out.permute(0, 3, 1, 2)
+
+
+def prefold_stages(model: nn.Module) -> None:
+    """Fill every fusing CSP stage's fold cache now, on the calling
+    thread's stream: replicas that share ``model`` on one card, each on a
+    stream of its own, then read the cache and never fold it
+    concurrently."""
+    for m in model.modules():
+        if isinstance(m, _CSPStage):
+            m.prefold()
 
 
 @contextmanager

@@ -28,6 +28,7 @@ import torch
 from yolov4_tpu_torch.ops.boxes import cxcywh_to_xyxy
 from yolov4_tpu_torch.ops.nms import greedy_nms_mask
 from yolov4_tpu_torch.ops.nms_cuda import greedy_nms_mask_cuda
+from yolov4_tpu_torch.ops.replica import replica_max
 
 NMS_ENGINES = ("auto", "plain")
 
@@ -127,8 +128,11 @@ def postprocess(predictions: torch.Tensor, num_classes: int,
 
     # class-offset trick: disjoint coordinate islands per class. The span
     # covers the full coordinate RANGE: decoded boxes are unclipped, and a
-    # negative-coordinate box must not hang into the previous class.
-    span = 2.0 * sel_boxes.abs().amax() + 1.0
+    # negative-coordinate box must not hang into the previous class. It is
+    # the whole batch's, over a mesh's replicas too (the JAX package's
+    # program is partitioned and keeps it global), so that a row's
+    # detections do not depend on how the batch was sharded.
+    span = 2.0 * replica_max(sel_boxes.abs().amax()) + 1.0
     offset_boxes = sel_boxes + (cls_idx.float() * span)[..., None]
     if nms_engine == "plain":
         keep = greedy_nms_mask(offset_boxes, valid, nms_thre)

@@ -4,7 +4,7 @@ Usage:
     python -m yolov4_tpu_torch.serve [--cfg configs/yolov4_Tianxiaomo.cfg] \
         [--ckpt model_best.ckpt] [--port 8000] [--sizes 608,416] \
         [--batch-size 16] [--max-wait-ms 8] [--conf-thre 0.25] \
-        [--nms-thre 0.45] [--quant int8_static] [--device cuda]
+        [--nms-thre 0.45] [--quant int8_static] [--device cuda | --mesh]
     python -m yolov4_tpu_torch.serve --artifact m608.y4t,m416.y4t
 
     curl -s -X POST --data-binary @bus.jpg \
@@ -17,8 +17,12 @@ serves exported files (``python -m yolov4_tpu_torch.tools.export_serving``)
 with their baked weights and thresholds. Runs on CUDA unless ``--device``
 names another device; a missing card is an error. ``--quant`` sets
 ``MODEL.QUANT``: with int8_static each size bucket calibrates its own
-scales on its own first batch, as in the JAX package. ``--mesh``
-(multi-card serving) is refused: it is not ported.
+scales on its own first batch, as in the JAX package. ``--mesh`` shards
+each serving batch over every local card (``parallel/mesh.create_mesh``),
+one replica per card in a host thread and CUDA stream of its own, with the
+batch-global maxima (the NMS's class-offset span, the dynamic int8
+abs-max) taken over the whole mesh; ``--batch-size`` is then rounded up to
+a whole number of rows per card. It takes no ``--device``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import signal
 from typing import Optional, Sequence
 
 from yolov4_tpu_torch.config import load_config
+from yolov4_tpu_torch.parallel.mesh import create_mesh
 from yolov4_tpu_torch.serve import ServingRuntime, make_server
 from yolov4_tpu_torch.utils.convert import load_weights
 from yolov4_tpu_torch.utils.logging import get_logger, setup_logging
@@ -57,7 +62,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--request-timeout-s", type=float, default=120.0,
                         help="per-request server-side completion deadline")
     parser.add_argument("--mesh", action="store_true",
-                        help="multi-card serving: not ported (refused)")
+                        help="shard each serving batch over every local "
+                             "card (one replica per card, batch-global "
+                             "maxima over the mesh; batch-size rounded up "
+                             "to a whole number of rows per card)")
     parser.add_argument("--conf-thre", type=float, default=0.25,
                         help="bucket detection threshold (requests may "
                              "raise it per call via ?conf=); default 0.25, "
@@ -71,20 +79,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              "MODEL.QUANT; int8* are not reference-exact; "
                              "int8_static calibrates each bucket on its "
                              "first batch)")
-    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="the device to serve on (not with --mesh)")
     return parser.parse_args(argv)
 
 
 def build_runtime(args) -> ServingRuntime:
     """The runtime the flags describe (not started)."""
     logger = get_logger(__name__)
-    if args.mesh:
-        raise SystemExit("error: --mesh: multi-card serving is not ported "
-                         "to PyTorch; serve on one card")
     if args.artifact:
         ignored = [name for name, val, default in (
             ("--ckpt", args.ckpt, None), ("--sizes", args.sizes, None),
-            ("--quant", args.quant, None),
+            ("--quant", args.quant, None), ("--mesh", args.mesh, False),
             ("--batch-size", args.batch_size, 16),
             ("--conf-thre", args.conf_thre, 0.25),
             ("--nms-thre", args.nms_thre, -0.1),
@@ -101,6 +107,12 @@ def build_runtime(args) -> ServingRuntime:
         logger.info(f"serving {len(paths)} artifact bucket(s) "
                     f"{runtime.sizes} (baked weights + thresholds)")
         return runtime
+    mesh = None
+    if args.mesh:
+        if args.device != "cuda":
+            raise SystemExit(f"error: --mesh shards over every local card; "
+                             f"it takes no --device ({args.device})")
+        mesh = create_mesh()
     cfg = load_config(args.cfg)
     if args.quant is not None:
         cfg["MODEL"]["QUANT"] = args.quant
@@ -122,10 +134,14 @@ def build_runtime(args) -> ServingRuntime:
         cfg, state_dict=state_dict, sizes=sizes,
         batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
         inflight=args.inflight, conf_thre=conf_thre, nms_thre=nms_thre,
-        request_timeout_s=args.request_timeout_s, device=args.device)
+        request_timeout_s=args.request_timeout_s,
+        device=None if mesh else args.device, mesh=mesh)
+    where = (f"mesh {[str(d) for d in mesh.devices]}" if mesh
+             else f"device {args.device}")
+    batch = runtime.buckets[sizes[0]].batch_size
     logger.info(f"warming {len(sizes)} bucket(s) {sizes} at batch "
-                f"{args.batch_size}, conf {conf_thre}, nms {nms_thre}, "
-                f"quant {cfg['MODEL']['QUANT']}, device {args.device}")
+                f"{batch}, conf {conf_thre}, nms {nms_thre}, "
+                f"quant {cfg['MODEL']['QUANT']}, {where}")
     return runtime
 
 

@@ -54,7 +54,10 @@ class ServingRuntime:
     (one static batch shape each) over the same ``nn.Module``: the
     weights are loaded onto the card once and read by every bucket.
     ``state_dict``: the weights (None: the seed-0 reference init);
-    ``device``: None means CUDA."""
+    ``device``: None means CUDA. ``mesh`` (parallel/mesh.create_mesh):
+    each bucket shards its batches over the mesh's replicas (the batch is
+    then a whole number of rows per replica), the buckets sharing one
+    copy of the weights per card; ``device`` must then be None."""
 
     def __init__(self, cfg: Dict, state_dict=None,
                  sizes: Optional[Sequence[int]] = None,
@@ -63,7 +66,7 @@ class ServingRuntime:
                  nms_thre: Optional[float] = None,
                  request_timeout_s: float = 120.0,
                  predictors: Optional[Dict[int, object]] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         # generous default: the first dispatch of a bucket builds the
         # kernels and lets cuDNN pick its algorithms
@@ -82,15 +85,16 @@ class ServingRuntime:
             self.sizes = [int(s) for s in (sizes or [cfg["TEST"]["IMGSIZE"]])]
             model = None
             for size in self.sizes:
-                # the first Predictor builds and loads the model; the
-                # others run the same module. Each keeps int8_static scales
-                # of its own, calibrated on its own first batch (the JAX
-                # package's buckets each own a "quant" collection)
+                # the first Predictor builds and loads the model (one copy
+                # per card of a mesh); the others run the same modules.
+                # Each keeps int8_static scales of its own, calibrated on
+                # its own first batch (the JAX package's buckets each own
+                # a "quant" collection)
                 pred = Predictor(cfg, state_dict=state_dict, img_size=size,
                                  batch_size=batch_size, conf_thre=conf_thre,
                                  nms_thre=nms_thre, device=device,
-                                 model=model)
-                model, state_dict = pred.model, None
+                                 model=model, mesh=mesh)
+                model, state_dict = pred.replicas, None
                 self.buckets[size] = DynamicBatcher(
                     pred, max_wait_ms=max_wait_ms, inflight=inflight,
                     metrics=self.metrics, name=f"bucket{size}")
