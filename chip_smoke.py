@@ -189,6 +189,33 @@ line:
                mesh predictor's rows on the same batches, K1 and K2 per
                replica per batch, requests/s.
 
+ 18. ranks   — Predictor(group=...) over torchrun-style ranks (run after
+               phase 17): two spawned gloo ranks sharing the card (NCCL
+               refuses two ranks on one card), each a full-width
+               Predictor at 608, b8 a rank, bf16, PALLAS_CSP, conf 0.25,
+               on phase 7's weights and its rows of phase 17's batch: K1
+               once and K2 3 times a rank, the rows side by side bit-equal
+               to phase 17's two-replica mesh. Shards whose own maxima
+               differ: the span case (lookup model; bit-equal to one
+               predictor on the whole batch, the near rank alone differs)
+               and the bright/dark batch in float32 int8 span full (the
+               decoded forward and the detections bit-equal to the
+               two-replica mesh's; the dark rank alone differs and equals
+               the mesh with per-shard maxima). int8_static calibrated
+               over the ranks: the mesh's scales bit for bit. A two-rank
+               Trainer.evaluate on phase 12's synthetic val2017: the
+               Trainer's predictor over the world group, the same AP on
+               both ranks, K1 2 and K2 6 a rank. NCCL at world size 1:
+               the group predictor bit-equal to the plain one at 608/b16.
+               One group max timed on gloo and on NCCL (host and device
+               us a call). Then the analysis tools at 608/b16 bf16:
+               tools.attr_trace on Predictor.run, default and PALLAS_CSP
+               (under 1 % of the device time unattributed, the scope
+               groups adding up to the traced total),
+               tools.check_csp_fused on phase 7's weights (parity within
+               K2_TOL_BF16, the paired plain / fused ratio) and
+               tools.act_bound, default and PALLAS_CSP (Mish's ceiling).
+
  14. classify — the classifier pretrainer (classify/, darknet_pretrain,
                run after phase 12): (a) two Adam steps of the WIDTH 0.25
                CSPDarknet53 classifier (4 classes, 64x64, batch 4) in
@@ -3046,7 +3073,8 @@ def mesh_case(label, pred, one, images, kernels, k2_per_forward,
     0 just before and read just after; then hold its detections bit for
     bit against postprocess on its replicas' forwards and, per image,
     against the one-replica predictor's at MESH_MATCH_*. Returns the
-    row of the report (its raw predictions and the launches included)."""
+    report's row (the launches included), the mesh's decoded predictions,
+    one replica's, and the mesh's detections."""
     from yolov4_tpu_torch.ops.postprocess import postprocess
     nms_cuda, csp_cuda = kernels
     n = pred.mesh.size
@@ -3096,7 +3124,7 @@ def mesh_case(label, pred, one, images, kernels, k2_per_forward,
         f"{row['valid_rows_one']} valid rows, match share min "
         f"{row['min_match_share']:.4f} mean {row['mean_match_share']:.4f}; "
         f"forwards {row['forward_vs_one']}")
-    return row, raw, raw_one
+    return row, raw, raw_one, got
 
 
 def replica_max_cost(mesh, calls=500):
@@ -3344,7 +3372,9 @@ def mesh_serve(cfg, sd, mesh, kernels, report):
 
 def phase_mesh(cfg_cls, build_model, Predictor, nms_cuda, csp_cuda, smi,
                report):
-    """Phase 17; returns the (K1, K2) launches of its main paths."""
+    """Phase 17; returns the (K1, K2) launches of its main paths, then
+    phase 7's weights, the batch and the two-replica mesh's detections on
+    it (phase 18's reference)."""
     from yolov4_tpu_torch.models.layers import quant_sites
     from yolov4_tpu_torch.ops import int8 as int8_mod
     from yolov4_tpu_torch.parallel.mesh import create_mesh
@@ -3367,7 +3397,11 @@ def phase_mesh(cfg_cls, build_model, Predictor, nms_cuda, csp_cuda, smi,
         pred = Predictor(cfg, model=one.model, img_size=608, batch_size=16,
                          conf_thre=MESH_CONF, mesh=mesh)
         pred.warmup()
-        row, raw, raw_one = mesh_case(label, pred, one, images, kernels, 3)
+        row, raw, raw_one, got = mesh_case(label, pred, one, images,
+                                           kernels, 3)
+        if not rows:
+            # phase 18 holds the ranks' rows against the two replicas'
+            mesh_rows = got
         if row["min_match_share"] < MESH_MATCH_SHARE:
             raise AssertionError(f"{label}: an image shares only "
                                  f"{row['min_match_share']:.3f} of its "
@@ -3409,9 +3443,9 @@ def phase_mesh(cfg_cls, build_model, Predictor, nms_cuda, csp_cuda, smi,
     one8.warmup()
     mesh8.warmup()
     sites = len(quant_sites(one8.model))
-    row8, raw8, raw8_one = mesh_case("int8 span full, two replicas",
-                                     mesh8, one8, images, kernels, 0,
-                                     int8_mod)
+    row8, raw8, raw8_one, _ = mesh_case("int8 span full, two replicas",
+                                        mesh8, one8, images, kernels, 0,
+                                        int8_mod)
     if row8["int8"] != sites * mesh8.mesh.size:
         raise AssertionError(f"int8 mesh: {row8['int8']} products for "
                              f"{sites} sites on {mesh8.mesh.size} replicas")
@@ -3439,7 +3473,401 @@ def phase_mesh(cfg_cls, build_model, Predictor, nms_cuda, csp_cuda, smi,
     report["mesh"] = dict(card=smi, rows=rows, int8=row8, span_case=span,
                           amax_case=amax, seconds=time.time() - t_phase)
     log(f"[mesh] phase 17 in {report['mesh']['seconds']:.1f}s")
-    return k1 + serve_k1, k2 + serve_k2
+    return k1 + serve_k1, k2 + serve_k2, sd, images, mesh_rows
+
+
+# --------------------------------------------------------------------------
+# Phase 18: the predictor over torchrun's ranks (Predictor(group=...)) and
+# the analysis tools
+
+RANKS_LIMIT_S = 300
+GROUP_MAX_CALLS = 200
+
+
+def group_max_cost(group, calls=GROUP_MAX_CALLS):
+    """What one ``replica_max`` costs inside ``group_scope(group)``, every
+    rank of the group running it together: ``calls`` maxima of a 0-d
+    tensor on the card against the same loop without them, per call; host
+    us from the loop's wall time (ending in a synchronize), device us from
+    CUDA events with a spin kernel queued ahead. At every other call the
+    ranks' values differ (rank r adds r), so each rank must end at ``calls
+    + (world - 1) * (calls // 2)``. Gloo copies the value to the host and
+    back, so there the device time holds the host's round trips too."""
+    import torch.distributed as tdist
+    from yolov4_tpu_torch.ops.replica import group_scope, replica_max
+    rank, world = tdist.get_rank(group), tdist.get_world_size(group)
+
+    def timed(with_max, spin):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(RUN_SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        v = torch.zeros((), device="cuda")
+        with torch.inference_mode(), group_scope(group):
+            for step in range(calls):
+                v = v + (1 + rank * (step % 2))
+                if with_max:
+                    v = replica_max(v)
+        end.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end), \
+            float(v)
+
+    timed(True, False)
+    host1, _, v = timed(True, False)
+    want = calls + (world - 1) * (calls // 2)
+    if v != want:
+        raise AssertionError(f"group max on rank {rank}: {v}, want {want}")
+    host0 = timed(False, False)[0]
+    dev1, dev0 = timed(True, True)[1], timed(False, True)[1]
+    return dict(backend=str(tdist.get_backend(group)), world=world,
+                calls=calls, host_us=(host1 - host0) / calls * 1e3,
+                device_us=(dev1 - dev0) / calls * 1e3)
+
+
+def rows_of(out):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in out]
+
+
+def group_task(rank, sd_path, images_path, amax_path, root):
+    """Phase 18 on one of two gloo ranks sharing the card: (a) the
+    full-width Predictor(group=...) at 608, b8 a rank, bf16, PALLAS_CSP,
+    on its rows of phase 17's batch, K1's and K2's counts set to 0 just
+    before and read just after; (b) the span case's rows with the group
+    and alone; (c) the bright/dark batch in float32 int8 span full: the
+    decoded forward with the group and alone, and the detections; (d) an
+    int8_static calibration over the ranks; (e) Trainer.evaluate over the
+    ranks on phase 12's synthetic val2017, counted as (a); (f) the cost of
+    one group max on gloo."""
+    from yolov4_tpu_torch.config import Config
+    from yolov4_tpu_torch.engine.predictor import Predictor, model_input
+    from yolov4_tpu_torch.engine.trainer import Trainer
+    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
+    from yolov4_tpu_torch.ops.replica import group_scope
+    from yolov4_tpu_torch.parallel import dist
+    group = dist.world_group()
+    sd = torch.load(sd_path, weights_only=True)
+    mine = slice(8 * rank, 8 * rank + 8)
+    out = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        nms_cuda.greedy_nms_mask_cuda.launches = 0
+        csp_cuda.fused_csp_stage_cuda.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, k_counts(nms_cuda, csp_cuda)
+
+    pred = Predictor(int8_cfg(Config, "none", pallas=True), state_dict=sd,
+                     img_size=608, batch_size=8, conf_thre=MESH_CONF,
+                     device="cuda", group=group)
+    pred.warmup()
+    images = np.load(images_path)
+    rows, (k1, k2) = counted(lambda: pred(images[mine]))
+    out["main"] = dict(rows=rows_of(rows), k1=k1, k2=k2)
+    del pred
+    with counts_kept(nms_cuda, csp_cuda):
+        model, span_images = span_case()
+        model = model.cuda()
+        cfg = Config.from_dict({"TEST": dict(MESH_SPAN_TEST)})
+        half = span_images[4 * rank:4 * rank + 4]
+        out["span"] = {name: rows_of(Predictor(
+            cfg, model=model, img_size=64, batch_size=4, device="cuda",
+            **kw)(half)) for name, kw in (("group", {"group": group}),
+                                          ("alone", {}))}
+        amax_images = np.load(amax_path)[mine]
+        with tf32_off():
+            p8 = Predictor(int8_cfg(Config, "int8", "full", dtype="float32",
+                                    pallas=True), state_dict=sd,
+                           img_size=608, batch_size=8, conf_thre=MESH_CONF,
+                           device="cuda", group=group)
+            x = p8.upload(amax_images).permute(0, 3, 1, 2)
+            with torch.inference_mode():
+                with group_scope(group):
+                    fwd = p8.model(model_input(p8.model, x))
+                alone = p8.model(model_input(p8.model, x))
+            out["amax"] = dict(forward=fwd.cpu(), alone=alone.cpu(),
+                               rows=rows_of(p8(amax_images)))
+        del p8, x, fwd, alone
+        ps = Predictor(int8_cfg(Config, "int8_static", pallas=True),
+                       state_dict=sd, img_size=608, batch_size=8,
+                       device="cuda", group=group)
+        ps.calibrate(images[mine])
+        out["static"] = {site: {k: v.cpu() for k, v in e.items()}
+                         for site, e in ps.quant_state.items()}
+        del ps
+        torch.cuda.empty_cache()
+    trainer = Trainer(Config.from_dict(ddp_trainer_cfg(str(Path(root)
+                                                           / "eval"))),
+                      root, evaluate_only=True, device="cuda")
+    try:
+        out["in_group"] = trainer.predictor.group is group
+        (ap, ap50), (k1, k2) = counted(trainer.evaluate)
+    finally:
+        trainer.close()
+    out["evaluate"] = dict(ap=ap, ap50=ap50, k1=k1, k2=k2)
+    del trainer
+    torch.cuda.empty_cache()
+    out["group_max"] = group_max_cost(group)
+    return out
+
+
+DDP_TASKS["group"] = group_task
+
+
+def ranks_references(cfg_cls, Predictor, sd, mesh, amax_images, images):
+    """What the ranks are held against, on the two-replica mesh of phase
+    17 (global batch 16, b8 a replica) and one predictor: the span case's
+    rows on the whole batch and the near shard's alone; the bright/dark
+    batch's decoded forward and detections; int8_static scales calibrated
+    on the whole batch."""
+    from yolov4_tpu_torch.models import layers
+    model, span_images = span_case()
+    model = model.cuda()
+    cfg = cfg_cls.from_dict({"TEST": dict(MESH_SPAN_TEST)})
+    ref = {"span": Predictor(cfg, model=model, img_size=64, batch_size=8,
+                             device="cuda")(span_images)}
+    with tf32_off():
+        cfg8 = int8_cfg(cfg_cls, "int8", "full", dtype="float32",
+                        pallas=True)
+        pred = Predictor(cfg8, state_dict=sd, img_size=608, batch_size=16,
+                         conf_thre=MESH_CONF, mesh=mesh)
+        ref["amax_forward"] = mesh_forward(pred, amax_images).cpu()
+        ref["amax_rows"] = pred(amax_images)
+        mesh_max = layers.replica_max
+        layers.replica_max = lambda v: v
+        try:
+            ref["amax_per_shard"] = mesh_forward(pred, amax_images).cpu()
+        finally:
+            layers.replica_max = mesh_max
+    del pred
+    pred = Predictor(int8_cfg(cfg_cls, "int8_static", pallas=True),
+                     state_dict=sd, img_size=608, batch_size=16, mesh=mesh)
+    pred.calibrate(images)
+    ref["static"] = {site: {k: v.cpu() for k, v in e.items()}
+                     for site, e in pred.quant_state.items()}
+    del pred
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_ranks(ranks, ref, mesh_rows, report):
+    """The two ranks' results against the references: returns the report's
+    row."""
+    def joined(parts):
+        return [torch.cat(p).numpy() for p in zip(*parts)]
+
+    row = {}
+    main = joined([r["main"]["rows"] for r in ranks])
+    row["main_bit_equal_to_mesh"] = all(
+        np.array_equal(g, w) for g, w in zip(main, mesh_rows))
+    row["main_launches"] = [(r["main"]["k1"], r["main"]["k2"]) for r in ranks]
+    if not row["main_bit_equal_to_mesh"] or any(
+            c != (1, 3) for c in row["main_launches"]):
+        raise AssertionError(f"ranks: rows bit-equal to phase 17's mesh "
+                             f"{row['main_bit_equal_to_mesh']}, K1/K2 a rank "
+                             f"{row['main_launches']} (want 1, 3)")
+    span = joined([r["span"]["group"] for r in ranks])
+    near_alone = ranks[1]["span"]["alone"]
+    row["span"] = dict(
+        bit_equal=all(np.array_equal(g, w) for g, w in zip(span, ref["span"])),
+        alone_differs=any(not np.array_equal(a.numpy(), w[4:])
+                          for a, w in zip(near_alone, ref["span"])))
+    fwd = torch.cat([r["amax"]["forward"] for r in ranks])
+    dark = slice(8, 16)
+    amax_rows = joined([r["amax"]["rows"] for r in ranks])
+    row["amax"] = dict(
+        forward_bit_equal=bool(torch.equal(fwd, ref["amax_forward"])),
+        rows_bit_equal=all(np.array_equal(g, w)
+                           for g, w in zip(amax_rows, ref["amax_rows"])),
+        dark_alone_differs=not torch.equal(ranks[1]["amax"]["alone"],
+                                           ref["amax_forward"][dark]),
+        dark_alone_is_per_shard=bool(torch.equal(
+            ranks[1]["amax"]["alone"], ref["amax_per_shard"][dark])),
+        dark_alone_max_err=float((ranks[1]["amax"]["alone"]
+                                  - ref["amax_forward"][dark]).abs().max()))
+    gaps = [float(((r["static"][site]["amax"] - e["amax"]).abs()
+                   / e["amax"].abs().clamp_min(1e-30)).max())
+            for r in ranks for site, e in ref["static"].items()]
+    row["static"] = dict(
+        sites=len(ref["static"]),
+        bit_equal=all(torch.equal(r["static"][site][k], e[k])
+                      for r in ranks for site, e in ref["static"].items()
+                      for k in ("amax", "wq", "sw")),
+        max_rel_amax_gap=max(gaps))
+    row["evaluate"] = [r["evaluate"] for r in ranks]
+    row["group_max_gloo"] = ranks[0]["group_max"]
+    log(f"[ranks] two gloo ranks on one card, 608/b8 a rank bf16 PALLAS_CSP:"
+        f" rows bit-equal to phase 17's two-replica mesh, K1/K2 a rank "
+        f"{row['main_launches']}; span case {row['span']}; bright/dark int8 "
+        f"span full {row['amax']}; int8_static {row['static']}; "
+        f"Trainer.evaluate {row['evaluate']}; one group max on gloo "
+        f"{row['group_max_gloo']}")
+    bad = [k for k, ok in (
+        ("span rows", row["span"]["bit_equal"]),
+        ("span alone differs", row["span"]["alone_differs"]),
+        ("amax forward", row["amax"]["forward_bit_equal"]),
+        ("amax rows", row["amax"]["rows_bit_equal"]),
+        ("amax alone differs", row["amax"]["dark_alone_differs"]),
+        ("amax alone is the per-shard mesh",
+         row["amax"]["dark_alone_is_per_shard"]),
+        ("int8_static scales", row["static"]["bit_equal"]),
+        ("trainer group", all(r["in_group"] for r in ranks)),
+        ("trainer AP", ranks[0]["evaluate"]["ap"] == ranks[1]["evaluate"]["ap"]
+         and ranks[0]["evaluate"]["ap50"] == ranks[1]["evaluate"]["ap50"]),
+        ("trainer launches", all(r["evaluate"]["k1"] == 2
+                                 and r["evaluate"]["k2"] == 6
+                                 for r in ranks))) if not ok]
+    if bad:
+        raise AssertionError(f"ranks: {bad} failed: {row}")
+    report["ranks"] = row
+    return row
+
+
+def phase_ranks_nccl(cfg_cls, Predictor, sd, images, work, kernels):
+    """NCCL at world size 1: Predictor(group=...) on phase 17's batch at
+    b16 bit-equal to the plain predictor, counted as the main path; one
+    group max's cost on NCCL."""
+    import os
+    from yolov4_tpu_torch.parallel import dist
+    nms_cuda, csp_cuda = kernels
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_distributed(backend="nccl", device="cuda",
+                          init_method=f"file://{work / 'rendezvous.nccl'}",
+                          timeout_s=DDP_LIMIT_S)
+    try:
+        cfg = int8_cfg(cfg_cls, "none", pallas=True)
+        plain = Predictor(cfg, state_dict=sd, img_size=608, batch_size=16,
+                          conf_thre=MESH_CONF, device="cuda")
+        grp = Predictor(cfg, model=plain.model, img_size=608, batch_size=16,
+                        conf_thre=MESH_CONF, device="cuda",
+                        group=dist.world_group())
+        want = plain(images)
+        grp.warmup()
+        torch.cuda.synchronize()
+        nms_cuda.greedy_nms_mask_cuda.launches = 0
+        csp_cuda.fused_csp_stage_cuda.launches = 0
+        got = grp(images)
+        torch.cuda.synchronize()
+        k1, k2 = k_counts(nms_cuda, csp_cuda)
+        cost = group_max_cost(dist.world_group())
+    finally:
+        dist.shutdown()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(key, None)
+    row = dict(bit_equal=all(np.array_equal(g, w) for g, w in zip(got, want)),
+               k1=k1, k2=k2, group_max=cost)
+    log(f"[ranks] NCCL world size 1: the group predictor against the plain "
+        f"one at 608/b16 {row}")
+    if not row["bit_equal"] or (k1, k2) != (1, 3):
+        raise AssertionError(f"NCCL world size 1: {row}")
+    del plain, grp
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_tools(sd, kernels, smi, report):
+    """The three analysis tools once at 608/b16 bf16 (their stdout kept in
+    the report, their summaries logged); their launches are not the main
+    path's."""
+    from yolov4_tpu_torch.tools import act_bound, attr_trace, check_csp_fused
+    out = {}
+    with counts_kept(*kernels):
+        for name, argv in (("default", ["--target", "serve"]),
+                           ("pallas_csp", ["--target", "serve",
+                                           "--pallas-csp"])):
+            with captured_stdout() as text:
+                res = attr_trace.main(argv + ["--top", "25"])
+            out[f"attr_trace_{name}"] = res
+            if res["unattributed_share"] >= 0.01:
+                raise AssertionError(f"attr_trace {name}: "
+                                     f"{res['unattributed_share']:.4f} of "
+                                     "the device time unattributed")
+            total = res["device_ms_per_iter"]
+            if abs(sum(res["groups_ms_per_iter"].values()) - total) > \
+                    1e-9 * total:
+                raise AssertionError(f"attr_trace {name}: the groups do "
+                                     "not add up to the traced total")
+            top = list(res["groups_ms_per_iter"].items())[:12]
+            log(f"[tools] {smi}: attr_trace Predictor.run 608/b16 bf16 "
+                f"{name}: {total:.3f} ms device per call, unattributed "
+                f"{100 * res['unattributed_share']:.4f}%, by "
+                f"{res['attributed_by']}; top groups (depth 3) "
+                + ", ".join(f"{g} {ms:.3f}" for g, ms in top))
+        args = check_csp_fused.build_parser().parse_args(
+            ["--iters", "10", "--windows", "3"])
+        with captured_stdout():
+            res = check_csp_fused.run(check_csp_fused.build_cfg(args), args,
+                                      state_dict=sd)
+        out["check_csp_fused"] = res
+        if not (res["parity"]["within_tol"]
+                and res["parity"]["tol"] == K2_TOL_BF16):
+            raise AssertionError(f"check_csp_fused: {res['parity']}")
+        log(f"[tools] {smi}: check_csp_fused 608/b16 bf16 on phase 7's "
+            f"weights: parity {res['parity']}; plain "
+            f"{res['plain_median_ms']:.3f} ms, fused "
+            f"{res['fused_median_ms']:.3f} ms, plain / fused paired median "
+            f"{res['paired_median_ratio']:.3f}")
+        for name, argv in (("default", []), ("pallas_csp", ["--pallas-csp"])):
+            with captured_stdout():
+                res = act_bound.main(argv + ["--windows", "3"])
+            out[f"act_bound_{name}"] = res
+            log(f"[tools] {smi}: act_bound 608/b16 bf16 {name}: "
+                f"{res['swapped']} Mish sites swapped, {res['kept_in_k2']} "
+                f"kept in K2; mish {res['mish_median_ms']:.3f} ms, leaky "
+                f"{res['leaky_median_ms']:.3f} ms, ceiling "
+                f"{res['ceiling_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    report["tools"] = out
+
+
+def phase_ranks(cfg_cls, Predictor, coco_ids, sd, images, mesh_rows,
+                kernels, smi, report):
+    """Phase 18; returns the (K1, K2) launches of its main paths: the
+    ranks' group predictors and validations and the NCCL group
+    predictor."""
+    import os
+    from yolov4_tpu_torch.parallel.mesh import create_mesh
+    t0 = time.time()
+    work = ROOT / "runs" / "chip_smoke_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.save(sd, work / "sd.pt")
+    np.save(work / "images.npy", images)
+    amax_images = np.random.default_rng(44).integers(
+        0, 256, (16, 608, 608, 3), dtype=np.uint8)
+    amax_images[8:] //= 32
+    np.save(work / "amax.npy", amax_images)
+    write_val2017(work, coco_ids, DDP_VAL_IMAGES, seed=9)
+    tasks = [("group", {"sd_path": str(work / "sd.pt"),
+                        "images_path": str(work / "images.npy"),
+                        "amax_path": str(work / "amax.npy"),
+                        "root": str(work)})]
+    procs = start_ranks(tasks, work)
+    try:
+        ref = ranks_references(cfg_cls, Predictor, sd,
+                               create_mesh(["cuda:0"] * 2), amax_images,
+                               images)
+    finally:
+        ranks = join_ranks(procs, tasks, work,
+                           time.monotonic() + RANKS_LIMIT_S)["group"]
+    row = check_ranks(ranks, ref, mesh_rows, report)
+    row["nccl"] = phase_ranks_nccl(cfg_cls, Predictor, sd, images, work,
+                                   kernels)
+    row["ranks_seconds"] = time.time() - t0
+    phase_tools(sd, kernels, smi, report)
+    row["seconds"] = time.time() - t0
+    log(f"[ranks] phase 18 in {row['seconds']:.1f}s (ranks and NCCL "
+        f"{row['ranks_seconds']:.1f}s)")
+    shutil.rmtree(work, ignore_errors=True)
+    k1 = sum(r["main"]["k1"] + r["evaluate"]["k1"] for r in ranks)
+    k2 = sum(r["main"]["k2"] + r["evaluate"]["k2"] for r in ranks)
+    return k1 + row["nccl"]["k1"], k2 + row["nccl"]["k2"]
 
 
 # --------------------------------------------------------------------------
@@ -4377,8 +4805,12 @@ def main() -> int:
     int8_k1, int8_k2, int8_n, int8_products = phase_int8(
         Config, build_model, Predictor, val_mod, COCO_CLASS_IDS, nms_cuda,
         csp_cuda, smi, report)
-    mesh_k1, mesh_k2 = phase_mesh(Config, build_model, Predictor, nms_cuda,
-                                  csp_cuda, smi, report)
+    mesh_k1, mesh_k2, sd17, images17, mesh_rows = phase_mesh(
+        Config, build_model, Predictor, nms_cuda, csp_cuda, smi, report)
+    ranks_k1, ranks_k2 = phase_ranks(Config, Predictor, COCO_CLASS_IDS, sd17,
+                                     images17, mesh_rows,
+                                     (nms_cuda, csp_cuda), smi, report)
+    del sd17, images17, mesh_rows
     train = train_api()
     phase_train_vs_cpu(Config, build_model, train, report)
     phase_train_full(Config, build_model, train, report)
@@ -4411,12 +4843,14 @@ def main() -> int:
         # AUGMENTATION.DEVICE), phase 12's data-parallel validations,
         # phase 14's detector batch on the classifier's backbone,
         # phase 15's int8 runs (Predictor, serving, val), phase 17's mesh
-        # batches and mesh serving (one per replica per batch) and phase
+        # batches and mesh serving (one per replica per batch), phase 18's
+        # ranks (a batch and a validation each) and NCCL batch, and phase
         # 16's learning smokes, their scoring, the export check and the gate
         "launches": (launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1
-                     + int8_k1 + mesh_k1 + learn_n1),
+                     + int8_k1 + mesh_k1 + ranks_k1 + learn_n1),
         "launches_in_serving": serve_k1,
         "launches_in_mesh": mesh_k1,
+        "launches_in_ranks": ranks_k1,
         "launches_in_learning": learn_n1,
         "launches_in_int8": int8_k1,
         "launches_in_serving_by_run": {k: v[0] for k, v in
@@ -4449,12 +4883,13 @@ def main() -> int:
         # val's batches, the serving phase's, the Trainer's validations,
         # phase 12's and phase 15's (2 a forward under QUANT_SPAN late,
         # none under full; phase 14's detector batch runs without
-        # PALLAS_CSP), phase 17's (3 a replica's forward) and phase 16's
-        # PALLAS_CSP scoring of trained weights
+        # PALLAS_CSP), phase 17's (3 a replica's forward), phase 18's (3 a
+        # forward) and phase 16's PALLAS_CSP scoring of trained weights
         "launches": (k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2
-                     + int8_k2 + mesh_k2 + learn_n2),
+                     + int8_k2 + mesh_k2 + ranks_k2 + learn_n2),
         "launches_in_serving": serve_k2,
         "launches_in_mesh": mesh_k2,
+        "launches_in_ranks": ranks_k2,
         "launches_in_learning": learn_n2,
         "launches_in_int8": int8_k2,
         "launches_per_int8_forward": {"late": 2, "full": 0},

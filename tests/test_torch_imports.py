@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax_and_no_jax_package():
                  "darknet_pretrain", "native", "data.synthetic",
                  "tools.overfit_smoke", "tools.generalization_smoke",
                  "tools.run_coco_gate", "tools.export_torch",
-                 "ops.replica", "utils.device"):
+                 "ops.replica", "utils.device", "tools.attr_trace",
+                 "tools.check_csp_fused", "tools.act_bound"):
         assert f"yolov4_tpu_torch.{name}" in result["modules"]
     assert len(result["modules"]) >= 30
     assert result["forbidden"] == []

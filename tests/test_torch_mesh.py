@@ -22,10 +22,10 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from torch import nn
 
 from tests.fixtures import make_fake_coco
 from tests.test_torch_helpers import small_model_pair
+from tests.test_torch_parallel_worker import LookupModel
 from yolov4_tpu.engine.predictor import Predictor as JaxPredictor
 from yolov4_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from yolov4_tpu_torch.config import Config
@@ -276,18 +276,6 @@ def test_mesh_matches_jax_mesh(pair):
 
 # --------------------------------------------------------------------------
 # (c) shards whose own maxima would give other rows
-
-class LookupModel(nn.Module):
-    """A stand-in detector: each image's raw predictions [N, 85], looked up
-    by the image's first byte."""
-
-    def __init__(self, preds: torch.Tensor):
-        super().__init__()
-        self.register_buffer("preds", preds)
-
-    def forward(self, x):
-        return self.preds[torch.round(x[:, 0, 0, 0] * 255).long()]
-
 
 def _span_case(n_boxes=64, classes=80):
     """Predictions of 8 images (ids 1-8): the first four with boxes ~3e5

@@ -1,5 +1,5 @@
-"""Rank processes for tests/test_torch_parallel.py and
-tests/test_torch_sync_bn.py (no tests here).
+"""Rank processes for tests/test_torch_parallel.py,
+tests/test_torch_sync_bn.py and tests/test_torch_ranks.py (no tests here).
 
 ``run_rank`` is the target of each spawned process: it joins a gloo group
 of ``world`` ranks through a rendezvous file, runs one task and saves what
@@ -14,6 +14,7 @@ import os
 import numpy as np
 import torch
 import yaml
+from torch import nn
 
 # every collective of a test's group gives up after this long
 RANK_TIMEOUT_S = 120
@@ -301,5 +302,88 @@ def sync_bn_task(rank, world, sd_path, imgs, labels, num_classes, base_lr,
     return out
 
 
+class LookupModel(nn.Module):
+    """A stand-in detector: each image's raw predictions [N, 85], looked up
+    by the image's first byte."""
+
+    def __init__(self, preds: torch.Tensor):
+        super().__init__()
+        self.register_buffer("preds", preds)
+
+    def forward(self, x):
+        return self.preds[torch.round(x[:, 0, 0, 0] * 255).long()]
+
+
+def _rows(out):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in out)
+
+
+def ranks_task(rank, world, cfg_raw, sd_path, cases, span_preds, val_root,
+               trainer_raw):
+    """``Predictor(group=...)`` over the group, this rank on its block of
+    rows of each case's batch: {case: (detections, valid)}; each
+    ``cases`` entry is (MODEL overrides, images, lookup), ``lookup``
+    meaning the LookupModel on ``span_preds`` in place of the weights of
+    ``sd_path``; int8_static cases calibrate on the block first and return
+    the scales as "<case>/scales". Then the same predictor on a group of
+    this rank alone and the plain one, on the first case's whole batch
+    ("alone", "plain"); then ``Trainer.evaluate`` over the ranks with the
+    weights of ``sd_path``: its (AP, AP50) and the rows of each batch."""
+    import torch.distributed as tdist
+
+    from yolov4_tpu_torch.config import Config
+    from yolov4_tpu_torch.engine.predictor import Predictor
+    from yolov4_tpu_torch.engine.trainer import Trainer
+    from yolov4_tpu_torch.parallel import dist
+
+    group = dist.world_group()
+    with np.load(sd_path) as f:
+        sd = {k: torch.from_numpy(f[k]) for k in f.files}
+
+    def predictor(over, batch, lookup, **kw):
+        raw = {k: dict(v) for k, v in cfg_raw.items()}
+        raw["MODEL"].update(over)
+        weights = (dict(model=LookupModel(torch.from_numpy(span_preds)))
+                   if lookup else dict(state_dict=sd))
+        return Predictor(Config.from_dict(raw), batch_size=batch,
+                         device="cpu", **weights, **kw)
+
+    out = {}
+    for name, (over, images, lookup) in cases.items():
+        b = images.shape[0] // world
+        mine = images[rank * b:(rank + 1) * b]
+        pred = predictor(over, b, lookup, group=group)
+        if over.get("QUANT") == "int8_static":
+            pred.calibrate(mine)
+            out[name + "/scales"] = pred.quant_state
+        out[name] = _rows(pred(mine))
+
+    # every rank takes part in creating each group
+    alone = [tdist.new_group([r], backend="gloo") for r in range(world)]
+    over, images, lookup = next(iter(cases.values()))
+    out["alone"] = _rows(predictor(over, len(images), lookup,
+                                   group=alone[rank])(images))
+    out["plain"] = _rows(predictor(over, len(images), lookup)(images))
+
+    trainer = Trainer(Config.from_dict(trainer_raw), val_root,
+                      evaluate_only=True, device="cpu")
+    trainer.model.load_state_dict(sd)
+    batches = []
+    fetch = trainer.predictor.fetch_local
+
+    def recorded(dispatched):
+        rows = fetch(dispatched)
+        batches.append(_rows(rows))
+        return rows
+
+    trainer.predictor.fetch_local = recorded
+    out["evaluate"] = trainer.evaluate()
+    out["evaluate_rows"] = batches
+    out["evaluate_group"] = trainer.predictor.group is group
+    trainer.close()
+    return out
+
+
 TASKS = {"step": step_task, "skip": skip_task, "validate": validate_task,
-         "fit": fit_task, "resume": resume_task, "sync_bn": sync_bn_task}
+         "fit": fit_task, "resume": resume_task, "sync_bn": sync_bn_task,
+         "ranks": ranks_task}

@@ -27,15 +27,18 @@ model (the serving runtime's buckets) keep scales of their own.
 
 With a ``mesh`` of several replicas (parallel/mesh.py) ``dispatch`` shards
 each batch over them, as the JAX package's mesh predictor does, with the
-batch-global maxima taken over the whole mesh (``Predictor``).
+batch-global maxima taken over the whole mesh (``Predictor``). With a
+``group`` of ranks (torch.distributed, one process a rank) each rank runs
+its own batch and the maxima are taken over the group's ranks, as the JAX
+package's predictor over a mesh of several processes does.
 """
 
 from __future__ import annotations
 
 import copy
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +49,7 @@ from yolov4_tpu_torch.models.layers import (ConvBNAct, prefold_stages,
                                             quant_entries, quant_scope)
 from yolov4_tpu_torch.models.yolov4 import quant_mode
 from yolov4_tpu_torch.ops.postprocess import postprocess
+from yolov4_tpu_torch.ops.replica import group_scope
 from yolov4_tpu_torch.parallel.mesh import Mesh, ReplicaRunner
 # the entry points import the device rule from here
 from yolov4_tpu_torch.utils.device import device_scope, resolve_device
@@ -202,6 +206,18 @@ class Predictor:
     (``device`` must not be given as well); a mesh of one replica is that
     device alone. ``run``, ``run_wire`` and ``program`` stay the program
     on ``device`` alone.
+
+    ``group`` (a ``torch.distributed`` process group; not with ``mesh``):
+    the JAX package's predictor over a mesh of several processes, one rank
+    here being one process there. Each rank calls ``dispatch`` (or
+    ``run``, ``run_wire``, ``calibrate``, ``warmup``) on its own batch of
+    ``batch_size`` rows, every rank as often as the others, and the
+    batch-global maxima are taken over the group's ranks
+    (ops/replica.group_scope), so that each rank's rows equal those of
+    the unsharded predictor on the ranks' batches side by side.
+    int8_static calibration records the same scales on every rank. A
+    group of one rank gives the plain predictor's rows. ``program`` stays
+    the program of this rank alone, which export refuses.
     """
 
     def __init__(self, cfg: Dict, state_dict: Optional[Dict] = None,
@@ -212,7 +228,9 @@ class Predictor:
                  model: Union[nn.Module, Dict[torch.device, nn.Module],
                               None] = None,
                  quant_state: Optional[QuantState] = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, group=None):
+        if mesh is not None and group is not None:
+            raise ValueError("pass mesh or group, not both")
         if mesh is not None:
             if device is not None:
                 raise ValueError("pass device or mesh, not both")
@@ -221,6 +239,7 @@ class Predictor:
             mesh = mesh if mesh.size > 1 else None
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.group = group
         self.cfg = cfg
         if model is not None and state_dict is not None:
             raise ValueError("pass state_dict or model, not both")
@@ -326,7 +345,8 @@ class Predictor:
         warmup's seed scales instead. A no-op unless int8_static. A mesh
         predictor records on its first replica's device from the whole
         batch (the max over the shards is the max over the batch) and
-        gives every replica those scales."""
+        gives every replica those scales; a group predictor records each
+        site's max over the ranks' batches on every rank."""
         if self.quant != "int8_static":
             return
         base = (self._quant[self.device]
@@ -334,7 +354,7 @@ class Predictor:
         raw = {} if base is None else {
             name: {k: e[k] for k in ("amax", "wq", "sw")}
             for name, e in base.items()}
-        with device_scope(self.device):
+        with device_scope(self.device), self._ranks():
             x = self.upload(images).permute(0, 3, 1, 2)
             with quant_scope(raw, recording=True):
                 self.model(model_input(self.model, x))
@@ -351,16 +371,24 @@ class Predictor:
                 "weights: call calibrate() (dispatch() does on its first "
                 "batch)")
 
+    def _ranks(self):
+        """The maxima over the group's ranks (a group predictor)."""
+        return nullcontext() if self.group is None else group_scope(
+            self.group)
+
+    @contextmanager
     def _scope(self, device: torch.device,
-               state: Optional[QuantState] = None):
-        """The int8_static scales of the replica on ``device``: the
-        calibrated ones, or ``state``."""
-        if self.quant != "int8_static":
-            return nullcontext()
-        if state is None:
+               state: Optional[QuantState] = None) -> Iterator[None]:
+        """The scopes of a forward of the replica on ``device``: the
+        group's maxima, and the int8_static scales (the calibrated ones,
+        or ``state``)."""
+        if self.quant == "int8_static" and state is None:
             self._require_calibrated()
             state = self._quant[device]
-        return quant_scope(state)
+        with self._ranks(), (quant_scope(state)
+                             if self.quant == "int8_static"
+                             else nullcontext()):
+            yield
 
     @property
     def outputs(self) -> list:

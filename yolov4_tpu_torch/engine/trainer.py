@@ -143,8 +143,14 @@ class Trainer:
         if resume:
             self._resume(resume)
 
-        self.predictor = Predictor(cfg, batch_size=cfg["TEST"].get(
-            "BATCH_SIZE", 8), device=self.device)
+        # over several ranks the validation's batch-global maxima (the NMS
+        # span, the int8 abs-max, int8_static's scales) are taken over every
+        # rank's batch, as the JAX Trainer's predictor over the global mesh
+        # takes them
+        self.predictor = Predictor(
+            cfg, batch_size=cfg["TEST"].get("BATCH_SIZE", 8),
+            device=self.device,
+            group=dist_lib.world_group() if self.world > 1 else None)
 
     # ------------------------------------------------------------------
     def _ms_size_for(self, epoch: int, batch_index: int) -> int:
@@ -305,7 +311,8 @@ class Trainer:
     def evaluate(self):
         """COCO AP of the EMA weights when enabled (what a deployment would
         serve), else of the training weights, through the Predictor; each
-        rank on its shard of val2017. Counts the K1/K2 launches it made
+        rank on its shard of val2017, the batch-global maxima taken over
+        the ranks. Counts the K1/K2 launches it made
         into ``eval_launches``."""
         self.predictor.model.load_state_dict(
             self._named_state(self.state.ema_params is not None))

@@ -367,7 +367,10 @@ class ConvBNAct(nn.Module):
         if entry is None:
             wq, sw, bias = self.quantized_weights()
             if record is not None:
-                self._record(record, xn.float().abs().amax(), wq, sw)
+                # the batch's (over the ranks too), as at every site;
+                # recorded only, the forward's scale does not use it
+                self._record(record, replica_max(xn.float().abs().amax()),
+                             wq, sw)
             scale = sw / 255.0
             shift = 128 * wq.to(torch.int32).sum(dim=(1, 2, 3))
         else:
@@ -455,21 +458,24 @@ class _CSPStage(nn.Module):
         w = self.base.conv.weight
         return w.new_empty((1, w.shape[0], 1, 1))
 
+    def fuses(self) -> bool:
+        """Whether the body of an eval forward without autograd goes
+        through K2, for an input on the weights' device and dtype."""
+        return self._fuses(self._probe())
+
     def prefold(self) -> None:
         """Fold and pack into the cache now, for the body's input, if the
         body would go through K2."""
-        probe = self._probe()
-        if self._fuses(probe):
-            self.folded_weights(probe)
+        if self.fuses():
+            self.folded_weights(self._probe())
 
     def freeze(self) -> None:
         """Fold and pack now, for the body's input, and hold the result
         until :meth:`thaw`; a stage whose body would not go through K2
         holds nothing."""
-        probe = self._probe()
         self._frozen = None
-        if self._fuses(probe):
-            self._frozen = self.folded_weights(probe)
+        if self.fuses():
+            self._frozen = self.folded_weights(self._probe())
 
     def thaw(self) -> None:
         self._frozen = None

@@ -61,13 +61,14 @@ def export_serving(predictor, path: str, wire_dtype=np.uint8) -> Dict:
     name = np.dtype(wire_dtype).name
     if name not in WIRE_DTYPES:
         raise ValueError(f"wire dtype must be uint8 or float32, got {name}")
-    if predictor.mesh is not None:
+    if predictor.mesh is not None or predictor.group is not None:
         # the artifact is one device's program: it would carry neither the
-        # replicas nor the maxima taken across them
+        # replicas (or ranks) nor the maxima taken across them
         raise ValueError(
             "export requires a single-device predictor: this one is "
-            "sharded over a mesh of several replicas (build a Predictor "
-            "without mesh= for export)")
+            "sharded over a mesh of several replicas or over the ranks of a "
+            "process group (build a Predictor without mesh= or group= for "
+            "export)")
     if not predictor.quant_ready:
         raise ValueError(
             "int8_static predictor exported before calibration: call "
