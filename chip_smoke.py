@@ -237,6 +237,24 @@ line:
                MODEL.BACKBONE_PRETRAINED of the full-width detector (its
                backbone equal) and one 608/b2 Predictor batch.
 
+ 19. resume  — a JAX package checkpoint resumed on the card (run after
+               phase 14): run A, ``Trainer`` at full width, 608/b8, bf16,
+               Adam, ACCUMULATION_STEPS 2, EMA_DECAY 0.99, writes a
+               mid-epoch checkpoint at batch 3 (CHECKPOINT_EVERY_STEPS 3,
+               inside an accumulation window), turned by write_jax_ckpt
+               into the JAX package's .ckpt (JAX tree paths, HWIO kernels,
+               optax's opt_state, raw_params, meta); run B resumes the
+               .ckpt and run C the port's .pth, each through ``python -m
+               yolov4_tpu_torch.train --resume ... --deterministic`` (cuDNN's
+               deterministic kernels) with PALLAS_CSP validation: B's
+               loaded parameters, buffers, EMA, optimizer tensors, step,
+               epoch and batch index bit-equal to C's, then the losses of
+               the rest of the epoch and the final state bit-equal; K1 1 and
+               K2 3 in each validation (a batch); the .ckpt's MB, its
+               write and load seconds. The same for ``ClassifierTrainer``
+               (full width, crop 256, b8, bf16, Adam) through
+               ``darknet_pretrain --resume``.
+
  16. learning — the learning smokes at full width, 320x320, batch 8,
                bfloat16 (run after phase 14): (a) tools.overfit_smoke.run
                at its defaults, 300 steps on one batch (train-set AP50 >
@@ -272,6 +290,7 @@ from __future__ import annotations
 import json
 import math
 import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -4109,17 +4128,17 @@ def phase_cls_timed(report, smi):
         train_tflop=flops / 1e12, flop_share_bf16=share, card=smi)
 
 
-def write_imagefolder(root, seed=13):
+def write_imagefolder(root, seed=13, n_train=CLS_TRAIN_PER_CLASS,
+                      n_val=CLS_VAL_PER_CLASS):
     """CLS_CLASSES classes told apart by their colour (red, green, blue,
-    grey, with per-pixel noise and a random tint), CLS_TRAIN_PER_CLASS
-    train and CLS_VAL_PER_CLASS val JPEGs each at 288x320, written with
-    PIL: the CLI's short run can learn them."""
+    grey, with per-pixel noise and a random tint), ``n_train`` train and
+    ``n_val`` val JPEGs each at 288x320, written with PIL: the CLI's short
+    run can learn them."""
     from PIL import Image
     rng = np.random.default_rng(seed)
     colours = np.array([[200, 40, 40], [40, 200, 40], [40, 40, 200],
                         [120, 120, 120]])
-    for split, n in (("train", CLS_TRAIN_PER_CLASS),
-                     ("val", CLS_VAL_PER_CLASS)):
+    for split, n in (("train", n_train), ("val", n_val)):
         for cls in range(CLS_CLASSES):
             d = Path(root) / split / f"class{cls}"
             d.mkdir(parents=True)
@@ -4289,6 +4308,477 @@ def phase_classify(cfg_cls, build_model, nms_cuda, csp_cuda, smi, report):
     log(f"[classify] K1/K2 on the classifier path {launches}; phase 14 in "
         f"{report['classify']['seconds']:.1f}s")
     return detector
+
+
+# --------------------------------------------------------------------------
+# Phase 19 (resume): a JAX package checkpoint resumed through ``python -m
+# yolov4_tpu_torch.train --resume`` and ``darknet_pretrain --resume``. The
+# card's machine has no JAX, so the phase writes the JAX package's .ckpt
+# layout itself (write_jax_ckpt, held against flax and the JAX Trainer by
+# tests/test_torch_resume_jax.py).
+
+RESUME_EMA_DECAY = 0.99     # the EMA differs from the parameters at once
+RESUME_AT = 3               # CHECKPOINT_EVERY_STEPS: inside a window of 2
+RESUME_TRAIN_IMAGES, RESUME_VAL_IMAGES = 48, 8    # 6 steps of b8, 1 batch
+RESUME_CLS_TRAIN, RESUME_CLS_VAL = 12, 2          # a class: 6 steps of b8
+
+# flax's msgpack encoding (flax.serialization.msgpack_serialize): maps,
+# str, bin, ints, floats, nil, bools; ext 1 an ndarray, ext 3 a numpy
+# scalar, each the msgpack of (shape, dtype name, C bytes). Flax chunks an
+# array above 2**30 bytes; no array of the port's trainers is that large.
+_MP_STR = ((0xd9, ">B", 1 << 8), (0xda, ">H", 1 << 16), (0xdb, ">I", 1 << 32))
+_MP_BIN = ((0xc4, ">B", 1 << 8), (0xc5, ">H", 1 << 16), (0xc6, ">I", 1 << 32))
+_MP_ARRAY = ((0xdc, ">H", 1 << 16), (0xdd, ">I", 1 << 32))
+_MP_MAP = ((0xde, ">H", 1 << 16), (0xdf, ">I", 1 << 32))
+_MP_EXT = ((0xc7, ">B", 1 << 8), (0xc8, ">H", 1 << 16), (0xc9, ">I", 1 << 32))
+_MP_FIXEXT = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+_MP_INT = ((0xcc, ">B", 0, 1 << 8), (0xcd, ">H", 0, 1 << 16),
+           (0xce, ">I", 0, 1 << 32), (0xcf, ">Q", 0, 1 << 64),
+           (0xd0, ">b", -(1 << 7), 1 << 7), (0xd1, ">h", -(1 << 15), 1 << 15),
+           (0xd2, ">i", -(1 << 31), 1 << 31),
+           (0xd3, ">q", -(1 << 63), 1 << 63))
+
+
+def _mp_header(n, fix, fix_max, forms):
+    """The header of a value of length ``n``: ``fix | n`` up to
+    ``fix_max``, else the first length form that holds ``n``."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, limit in forms:
+        if n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _mp_int(v):
+    if 0 <= v < 128:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    for code, fmt, lo, hi in _MP_INT:
+        if lo <= v < hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"msgpack int {v} out of range")
+
+
+def _mp_ext(code, arr, out):
+    """flax's ``_ndarray_to_bytes`` inside an ext value; the array's bytes
+    are appended as a view, not copied."""
+    if arr.nbytes > 1 << 30:
+        raise ValueError(f"an array of {arr.nbytes} bytes: flax would chunk "
+                         "it, this writer does not")
+    if not arr.flags.c_contiguous:
+        arr = arr.copy(order="C")
+    head = [b"\x93"]
+    _mp_pack(tuple(int(d) for d in arr.shape), head)
+    _mp_pack(arr.dtype.name, head)
+    head.append(_mp_header(arr.nbytes, None, 0, _MP_BIN))
+    head = b"".join(head)
+    n = len(head) + arr.nbytes
+    if n in _MP_FIXEXT:
+        out.append(bytes([_MP_FIXEXT[n]]) + struct.pack(">b", code))
+    else:
+        out.append(_mp_header(n, None, 0, _MP_EXT) + struct.pack(">b", code))
+    out += [head, memoryview(arr.reshape(-1).view(np.uint8))]
+
+
+def _mp_pack(obj, out):
+    kind = type(obj)
+    if obj is None:
+        out.append(b"\xc0")
+    elif kind is bool:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif kind is int:
+        out.append(_mp_int(obj))
+    elif kind is float:
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif kind is str:
+        data = obj.encode("utf-8")
+        out += [_mp_header(len(data), 0xa0, 31, _MP_STR), data]
+    elif kind is bytes:
+        out += [_mp_header(len(obj), None, 0, _MP_BIN), obj]
+    elif kind in (list, tuple):
+        out.append(_mp_header(len(obj), 0x90, 15, _MP_ARRAY))
+        for value in obj:
+            _mp_pack(value, out)
+    elif kind is dict:
+        out.append(_mp_header(len(obj), 0x80, 15, _MP_MAP))
+        for key, value in obj.items():
+            _mp_pack(key, out)
+            _mp_pack(value, out)
+    elif isinstance(obj, np.ndarray):
+        _mp_ext(1, obj, out)
+    elif isinstance(obj, np.generic):
+        _mp_ext(3, np.asarray(obj), out)
+    else:
+        raise TypeError(f"no msgpack encoding for {kind.__name__}")
+
+
+def write_jax_ckpt(path, tree):
+    """Write the nested dict ``tree`` (str keys; numpy arrays and scalars,
+    Python scalars, None) as the JAX package's ``save_checkpoint`` writes a
+    bundle: flax's msgpack, to a temporary name and then renamed."""
+    import os
+    pieces = []
+    _mp_pack(tree, pieces)
+    tmp = str(path) + ".tmp"
+    with open(tmp, "wb") as f:
+        for piece in pieces:
+            f.write(piece)
+    os.replace(tmp, path)
+
+
+def jax_tree_path(key, ndim):
+    """The JAX package's (collection, path) of the port's state-dict entry
+    ``key`` of ``ndim`` dimensions, the inverse of utils/convert.
+    flax_path_to_torch_key; None for ``num_batches_tracked`` (flax keeps no
+    such counter)."""
+    *modules, leaf = key.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    names = []
+    for seg in modules:   # Sequential indices rejoin their module's name
+        if seg.isdigit() and names:
+            names[-1] += "_" + seg
+        else:
+            names.append(seg)
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", (*names, leaf[len("running_"):])
+    if leaf == "weight":
+        return "params", (*names, "kernel" if ndim > 1 else "scale")
+    if leaf == "bias":
+        return "params", (*names, "bias")
+    raise ValueError(f"{key}: no JAX leaf")
+
+
+def jax_tree(named):
+    """{state-dict key: tensor} in the port's layout -> {collection: nested
+    dict of numpy arrays} in the JAX package's (OIHW -> HWIO, a Dense
+    kernel transposed); each path checked to map back to its key."""
+    from yolov4_tpu_torch.utils.convert import flax_path_to_torch_key
+    out = {}
+    for key, value in named.items():
+        where = jax_tree_path(key, value.dim())
+        if where is None:
+            continue
+        coll, path = where
+        if flax_path_to_torch_key(coll, path) != key:
+            raise ValueError(f"{key}: {coll}/{'/'.join(path)} maps back to "
+                             f"{flax_path_to_torch_key(coll, path)}")
+        arr = value.detach().cpu().numpy()
+        if path[-1] == "kernel":
+            arr = arr.transpose((2, 3, 1, 0)) if arr.ndim == 4 else arr.T
+        node = out.setdefault(coll, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
+def jax_bundle(port, order):
+    """A port trainer's bundle (utils/checkpoint.py; its optimizer's state
+    indexed by the parameter names ``order``) -> the tree the JAX
+    package's trainers save: variables in the JAX layout, optax's
+    ``opt_state`` (Adam ``{count, mu, nu}``; SGD ``{"0": {"inner_state":
+    {}}, "1": {"trace"}}``), meta and, with an EMA, raw_params."""
+    per = {name: port["opt_state"]["state"][i]
+           for i, name in enumerate(order)}
+    if all("exp_avg" in s for s in per.values()):
+        steps = {float(s["step"]) for s in per.values()}
+        if len(steps) != 1:
+            raise ValueError(f"Adam's parameters at different steps {steps}")
+        def moment(key):
+            return jax_tree({n: s[key] for n, s in per.items()})["params"]
+
+        opt_state = {"count": np.asarray(int(steps.pop()), np.int32),
+                     "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+    else:
+        opt_state = {"0": {"inner_state": {}}, "1": {"trace": jax_tree(
+            {n: s["momentum_buffer"] for n, s in per.items()})["params"]}}
+    bundle = {"variables": jax_tree(port["variables"]),
+              "opt_state": opt_state, "meta": dict(port["meta"])}
+    if "raw_params" in port:
+        bundle["raw_params"] = jax_tree(port["raw_params"])["params"]
+    return bundle
+
+
+class StopRun(Exception):
+    """Ends run A once its mid-epoch checkpoint is kept."""
+
+
+def run_until_checkpoint(trainer, pth, ckpt):
+    """Run A: train epoch 0 up to the trainer's first mid-epoch checkpoint,
+    keep it as ``pth`` and, in the JAX package's layout, as ``ckpt``, then
+    stop. Returns the writer's seconds."""
+    from yolov4_tpu_torch.utils.convert import (param_names_in_order,
+                                                torch_load)
+    save = trainer._save_mid_epoch
+    seconds = []
+
+    def saving(epoch, batch_index):
+        save(epoch, batch_index)
+        shutil.copyfile(Path(trainer.output_dir) / "checkpoint.pth", pth)
+        t0 = time.time()
+        write_jax_ckpt(ckpt, jax_bundle(torch_load(str(pth)),
+                                        param_names_in_order(
+                                            trainer.optimizer, trainer.model)))
+        seconds.append(time.time() - t0)
+        raise StopRun
+
+    trainer._save_mid_epoch = saving
+    try:
+        trainer.train_epoch(0)
+    except StopRun:
+        return seconds[0]
+    finally:
+        trainer.close()
+    raise AssertionError("run A ended without a mid-epoch checkpoint")
+
+
+def resume_snapshot(trainer, counters):
+    """A resumed trainer's loaded state on the CPU: model state (parameters
+    and buffers), EMA, each optimizer state tensor, the counters."""
+    state = trainer.optimizer.state_dict()["state"]
+    ema = trainer.state.ema_params or {}
+    return {"model": {k: v.detach().cpu().clone()
+                      for k, v in trainer.model.state_dict().items()},
+            "ema": {k: v.cpu().clone() for k, v in ema.items()},
+            "opt": {f"{i}.{k}": v.detach().cpu().clone()
+                    for i, s in state.items() for k, v in s.items()},
+            "counters": {c: getattr(trainer, c, None) for c in counters}
+            | {"step": trainer.state.step}}
+
+
+@contextmanager
+def probing(module, name, counters, runs):
+    """``module.<name>`` (a trainer class) replaced for the block by a
+    subclass that times its ``_resume``, then, once built, appends to
+    ``runs`` a dict holding the trainer, its resume_snapshot and the list
+    its train_step fills with each micro-step's loss (a device scalar)."""
+    base = getattr(module, name)
+
+    class Probe(base):
+        def _resume(self, path):
+            t0 = time.time()
+            super()._resume(path)
+            self.resume_seconds = time.time() - t0
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            run = {"trainer": self, "losses": [],
+                   "seconds": self.resume_seconds,
+                   "loaded": resume_snapshot(self, counters)}
+            step = self.train_step
+
+            def recording(state, *batch):
+                state = step(state, *batch)
+                run["losses"].append(state.loss)
+                return state
+
+            self.train_step = recording
+            runs.append(run)
+
+    setattr(module, name, Probe)
+    try:
+        yield
+    finally:
+        setattr(module, name, base)
+
+
+def differing(a, b, skip=()):
+    """Entries of two {name: tensor} dicts that are not equal bit for bit
+    (or lie in only one), and the largest |a - b| over the shared ones."""
+    names = [k for k in sorted(set(a) | set(b))
+             if not k.endswith(skip)]
+    bad = [k for k in names if k not in a or k not in b
+           or not torch.equal(a[k], b[k])]
+    gap = max((float((a[k].double() - b[k].double()).abs().max())
+               for k in bad if k in a and k in b and a[k].numel()),
+              default=0.0)
+    return bad, gap
+
+
+def check_resumed(label, b, c, report):
+    """(c) B's loaded state against C's, bit for bit; (d) the continuation:
+    each micro-step's loss and the final model state. ``num_batches_tracked``
+    is left out: the JAX layout has no such counter (B's reads 0) and the
+    port's BatchNorm, whose momentum is fixed, never reads it."""
+    skip = ("num_batches_tracked",)
+    out = {}
+    for part in ("model", "ema", "opt"):
+        bad, gap = differing(b["loaded"][part], c["loaded"][part], skip)
+        if bad:
+            raise AssertionError(f"{label}: the loaded {part} differs between "
+                                 f"the .ckpt and the .pth resume in "
+                                 f"{len(bad)} tensors (e.g. {bad[:3]}, max "
+                                 f"|d| {gap})")
+        out[f"loaded_{part}_tensors"] = len(b["loaded"][part])
+    if b["loaded"]["counters"] != c["loaded"]["counters"]:
+        raise AssertionError(f"{label}: counters {b['loaded']['counters']} "
+                             f"from the .ckpt, {c['loaded']['counters']} "
+                             "from the .pth")
+    losses_b = [float(v) for v in b["losses"]]
+    losses_c = [float(v) for v in c["losses"]]
+    final = [{k: v.detach().cpu() for k, v in
+              r["trainer"].model.state_dict().items()} for r in (b, c)]
+    bad, gap = differing(*final, skip)
+    loss_gap = max((abs(x - y) for x, y in zip(losses_b, losses_c)),
+                   default=0.0)
+    out.update(counters=b["loaded"]["counters"], losses_ckpt=losses_b,
+               losses_pth=losses_c, loss_max_abs_gap=loss_gap,
+               final_tensors_differing=len(bad), final_max_abs_gap=gap,
+               resume_s_ckpt=b["seconds"], resume_s_pth=c["seconds"])
+    report["resume"][label] = out
+    if (len(losses_b) != len(losses_c) or not losses_b
+            or not np.isfinite(losses_b).all() or loss_gap or bad):
+        raise AssertionError(
+            f"{label}: the continuation differs: losses {losses_b} from the "
+            f".ckpt, {losses_c} from the .pth; {len(bad)} final tensors "
+            f"differ (max |d| {gap}, e.g. {bad[:3]})")
+    return out
+
+
+def resume_detector(work, coco_ids, nms_cuda, csp_cuda, report):
+    """(a)-(d), (f), (g) for the detector: run A writes a mid-epoch
+    checkpoint at batch RESUME_AT, turned into the JAX layout; B resumes
+    that .ckpt and C the .pth, each through ``train.main --deterministic``
+    (cuDNN's deterministic kernels, the base seeds pinned). The loaders
+    run in this process without mosaic: the resume, not the augmentation
+    (phase 10's), is under test here."""
+    import yaml
+    from yolov4_tpu_torch import train as train_cli
+    from yolov4_tpu_torch.config import Config
+    from yolov4_tpu_torch.engine import trainer as trainer_mod
+    write_val2017(work, coco_ids, RESUME_TRAIN_IMAGES, name="train2017",
+                  seed=8)
+    write_val2017(work, coco_ids, RESUME_VAL_IMAGES, name="val2017", seed=9)
+
+    def config(name, every=0):
+        return {"DATA": {"BATCH_SIZE": 8, "WORKERS": 0},
+                "MODEL": {"PALLAS_CSP": True},
+                "AUGMENTATION": {"IS_MOSAIC": False},
+                "TEST": {"BATCH_SIZE": 8},
+                "TRAIN": {"ACCUMULATION_STEPS": 2,
+                          "CHECKPOINT_EVERY_STEPS": every,
+                          "EMA_DECAY": RESUME_EMA_DECAY, "MAX_EPOCHS": 1,
+                          "OUTPUT_DIR": str(work / name)}}
+
+    pth, ckpt = work / "mid.pth", work / "mid.ckpt"
+    write_s = run_until_checkpoint(trainer_mod.Trainer(
+        Config.from_dict(config("a", RESUME_AT)), str(work), device="cuda"),
+        pth, ckpt)
+    torch.cuda.empty_cache()
+
+    runs, launches = [], []
+    counters = ("start_epoch", "_resume_skip", "best_ap50", "best_ap50_95")
+    for name, path in (("b", ckpt), ("c", pth)):
+        with open(work / f"{name}.yaml", "w") as f:
+            yaml.safe_dump(config(name), f)
+        nms_cuda.greedy_nms_mask_cuda.launches = 0
+        csp_cuda.fused_csp_stage_cuda.launches = 0
+        with probing(trainer_mod, "Trainer", counters, runs):
+            train_cli.main([str(work), "-c", str(work / f"{name}.yaml"),
+                            "--resume", str(path), "--deterministic",
+                            "--print-freq", "1", "--device", "cuda"])
+        launches.append(k_counts(nms_cuda, csp_cuda))
+    want = {"start_epoch": 0, "_resume_skip": RESUME_AT, "step": RESUME_AT}
+    got = {k: runs[0]["loaded"]["counters"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"detector: resumed at {got}, expected {want}")
+    out = check_resumed("detector", runs[0], runs[1], report)
+    if launches[0] != (1, 3):
+        raise AssertionError(f"detector: B's validation launched K1 "
+                             f"{launches[0][0]}, K2 {launches[0][1]} times "
+                             "(a batch: 1 and 3 expected)")
+    out.update(ckpt_mb=ckpt.stat().st_size / 1e6, pth_mb=pth.stat().st_size
+               / 1e6, write_s=write_s, launches_ckpt=launches[0],
+               launches_pth=launches[1],
+               params=sum(p.numel() for p in
+                          runs[0]["trainer"].model.parameters()))
+    for run in runs:   # the trainers and snapshots: ~2 GB of host memory
+        run.clear()
+    return out, launches
+
+
+def resume_classifier(work, report):
+    """(e): the same for ClassifierTrainer at full width, crop 256, b8,
+    through ``darknet_pretrain.main``, under cuDNN's deterministic
+    kernels, the loaders in this process."""
+    from yolov4_tpu_torch import darknet_pretrain
+    from yolov4_tpu_torch.classify import trainer as cls_mod
+    root = work / "imagenet"
+    write_imagefolder(root, n_train=RESUME_CLS_TRAIN, n_val=RESUME_CLS_VAL)
+    common = dict(batch_size=8, epochs=1, workers=0, num_classes=CLS_CLASSES)
+    pth, ckpt = work / "cls_mid.pth", work / "cls_mid.ckpt"
+    write_s = run_until_checkpoint(cls_mod.ClassifierTrainer(
+        str(root), output_dir=str(work / "cls_a"),
+        checkpoint_every_steps=RESUME_AT, device="cuda", **common), pth, ckpt)
+    torch.cuda.empty_cache()
+    runs = []
+    for name, path in (("cls_b", ckpt), ("cls_c", pth)):
+        with probing(cls_mod, "ClassifierTrainer",
+                     ("start_epoch", "_resume_skip", "best_prec1"), runs):
+            darknet_pretrain.main([
+                str(root), "-b", "8", "--epochs", "1", "-j", "0",
+                "--num-classes", str(CLS_CLASSES), "--print-freq", "1",
+                "--output-dir", str(work / name), "--resume", str(path),
+                "--device", "cuda"])
+    got = {k: runs[0]["loaded"]["counters"][k]
+           for k in ("start_epoch", "_resume_skip", "step")}
+    if got != {"start_epoch": 0, "_resume_skip": RESUME_AT,
+               "step": RESUME_AT}:
+        raise AssertionError(f"classifier: resumed at {got}")
+    out = check_resumed("classifier", runs[0], runs[1], report)
+    out.update(ckpt_mb=ckpt.stat().st_size / 1e6,
+               pth_mb=pth.stat().st_size / 1e6, write_s=write_s)
+    for run in runs:   # the trainers and snapshots
+        run.clear()
+    return out
+
+
+def phase_resume(coco_ids, nms_cuda, csp_cuda, smi, report):
+    """Phase 19. K1's and K2's counts are set to 0 just before each resumed
+    detector run and read just after; returns the sums over B and C."""
+    from yolov4_tpu_torch.utils.logging import setup_logging
+    t0 = time.time()
+    work = ROOT / "runs" / "chip_smoke_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    report["resume"] = {}
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    try:
+        det, launches = resume_detector(work, coco_ids, nms_cuda, csp_cuda,
+                                        report)
+        cudnn.deterministic, cudnn.benchmark = True, False
+        cls = resume_classifier(work, report)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+        # the CLIs pointed the log at files under ``work``
+        setup_logging()
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.time() - t0
+    report["resume"]["seconds"] = seconds
+    log(f"[resume] detector, full width ({det['params']} parameters), 608/b8 "
+        f"bf16 Adam, ACCUMULATION_STEPS 2, EMA {RESUME_EMA_DECAY}, a "
+        f"mid-epoch checkpoint at batch {RESUME_AT} ({smi}): the JAX .ckpt "
+        f"{det['ckpt_mb']:.1f} MB written in {det['write_s']:.2f}s, resumed "
+        f"in {det['resume_s_ckpt']:.2f}s (the port's .pth, "
+        f"{det['pth_mb']:.1f} MB, in {det['resume_s_pth']:.2f}s); loaded "
+        f"state bit-equal ({det['loaded_model_tensors']} model, "
+        f"{det['loaded_ema_tensors']} EMA, {det['loaded_opt_tensors']} "
+        f"optimizer tensors; counters {det['counters']}); the "
+        f"{len(det['losses_ckpt'])} losses after the resume "
+        f"{det['losses_ckpt']} and the final state bit-equal; K1, K2 in "
+        f"the validations {launches}")
+    log(f"[resume] classifier, full width, crop 256, b8 bf16 Adam: the JAX "
+        f".ckpt {cls['ckpt_mb']:.1f} MB written in {cls['write_s']:.2f}s, "
+        f"resumed in {cls['resume_s_ckpt']:.2f}s (.pth "
+        f"{cls['resume_s_pth']:.2f}s); loaded state bit-equal; the "
+        f"{len(cls['losses_ckpt'])} losses after the resume "
+        f"{cls['losses_ckpt']} and the final state bit-equal")
+    log(f"[resume] {smi}: phase 19 in {seconds:.1f}s")
+    return tuple(map(sum, zip(*launches)))
 
 
 # Phase 16 (learning): the gates. (a) the overfit tool's own assertion;
@@ -4831,6 +5321,8 @@ def main() -> int:
     # detector built on its backbone runs one Predictor batch
     cls_k1, cls_k2 = phase_classify(Config, build_model, nms_cuda, csp_cuda,
                                     smi, report)
+    resume_k1, resume_k2 = phase_resume(COCO_CLASS_IDS, nms_cuda, csp_cuda,
+                                        smi, report)
     learn_n1, learn_n2 = phase_learning(nms_cuda, csp_cuda, smi, report)
     kernels = {"kernels": [{
         "name": "greedy_nms_mask",
@@ -4844,10 +5336,13 @@ def main() -> int:
         # phase 14's detector batch on the classifier's backbone,
         # phase 15's int8 runs (Predictor, serving, val), phase 17's mesh
         # batches and mesh serving (one per replica per batch), phase 18's
-        # ranks (a batch and a validation each) and NCCL batch, and phase
-        # 16's learning smokes, their scoring, the export check and the gate
+        # ranks (a batch and a validation each) and NCCL batch, phase 19's
+        # validations of the resumed runs (the JAX .ckpt's and the .pth's),
+        # and phase 16's learning smokes, their scoring, the export check
+        # and the gate
         "launches": (launches + serve_k1 + trainer_k1 + ddp_k1 + cls_k1
-                     + int8_k1 + mesh_k1 + ranks_k1 + learn_n1),
+                     + int8_k1 + mesh_k1 + ranks_k1 + resume_k1 + learn_n1),
+        "launches_in_resume": resume_k1,
         "launches_in_serving": serve_k1,
         "launches_in_mesh": mesh_k1,
         "launches_in_ranks": ranks_k1,
@@ -4884,9 +5379,11 @@ def main() -> int:
         # phase 12's and phase 15's (2 a forward under QUANT_SPAN late,
         # none under full; phase 14's detector batch runs without
         # PALLAS_CSP), phase 17's (3 a replica's forward), phase 18's (3 a
-        # forward) and phase 16's PALLAS_CSP scoring of trained weights
+        # forward), phase 19's resumed runs' validations and phase 16's
+        # PALLAS_CSP scoring of trained weights
         "launches": (k2_launches + serve_k2 + trainer_k2 + ddp_k2 + cls_k2
-                     + int8_k2 + mesh_k2 + ranks_k2 + learn_n2),
+                     + int8_k2 + mesh_k2 + ranks_k2 + resume_k2 + learn_n2),
+        "launches_in_resume": resume_k2,
         "launches_in_serving": serve_k2,
         "launches_in_mesh": mesh_k2,
         "launches_in_ranks": ranks_k2,

@@ -5,26 +5,32 @@ save_checkpoint`` in both layouts, with a bfloat16 and a chunked leaf,
 decode leaf for leaf as flax's ``msgpack_restore`` does and map to
 ``state_dict_from_jax``'s state dict; a Predictor on the file matches the
 JAX Predictor on it; ``BACKBONE_PRETRAINED`` grafts from it; a resume
-refuses it; and none of it needs flax or msgpack."""
+refuses an optimizer state that does not map; and none of it, a resume's
+whole state included, needs flax or msgpack."""
 
 import subprocess
 import sys
 
 import flax.serialization as flax_serialization
+import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
-from tests.test_torch_helpers import small_model_pair
+from tests.test_torch_helpers import SMALL_CFG, small_model_pair
 from yolov4_tpu.engine.predictor import Predictor as JaxPredictor
 from yolov4_tpu.utils import checkpoint as jax_ckpt
 from yolov4_tpu_torch.engine.predictor import Predictor
 from yolov4_tpu_torch.models import build_model
+from yolov4_tpu_torch.optim import build_optimizer
 from yolov4_tpu_torch.utils import msgpack
-from yolov4_tpu_torch.utils.checkpoint import (load_checkpoint_raw,
+from yolov4_tpu_torch.utils.checkpoint import (is_jax_layout,
+                                               load_checkpoint_raw,
                                                load_pretrained_backbone)
-from yolov4_tpu_torch.utils.convert import (load_jax_checkpoint,
+from yolov4_tpu_torch.utils.convert import (bundle_from_jax,
+                                            load_jax_checkpoint,
                                             load_weights, state_dict_from_jax)
 
 torch.set_num_threads(1)
@@ -207,16 +213,62 @@ def test_backbone_pretrained_graft_through_trainer_cfg(pair, tmp_path):
 
 
 def test_resume_from_ckpt_is_refused(pair, tmp_path):
+    """A resume reads a .ckpt, and refuses one whose opt_state is not
+    optax's state of the port's optimizer for this model (this bundle's is
+    a stand-in without ``nu``): never a fresh optimizer where the file
+    holds a state."""
     path = jax_ckpt.save_checkpoint(_bundle(pair["jvars"]), False,
                                     output_dir=str(tmp_path),
                                     filename="checkpoint.ckpt")
-    with pytest.raises(ValueError, match="optimizer state"):
-        load_checkpoint_raw(path)
+    raw = load_checkpoint_raw(path)
+    assert is_jax_layout(raw) and raw["meta"]["epoch"] == 3
+    model = build_model(pair["cfg"], device="cpu", train=True)
+    with pytest.raises(ValueError, match=r"opt_state: the port's Adam needs "
+                       r"optax's state with the keys \['count', 'mu', "
+                       r"'nu'\], the file holds \['count', 'mu'\]"):
+        bundle_from_jax(raw, build_optimizer(pair["cfg"], model), model,
+                        path)
+
+
+def _adam_state(params, seed=4):
+    """optax's Adam state over ``params``, its moments drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    draw = (lambda a: rng.normal(0, 1e-2, np.shape(a)).astype(np.float32))
+    return optax.ScaleByAdamState(
+        count=np.asarray(3, np.int32), mu=jax.tree.map(draw, params),
+        nu=jax.tree.map(lambda a: np.square(draw(a)), params))
+
+
+# what a resume of a .ckpt loads (utils/checkpoint, utils/convert): the
+# tensor count and float64 sum of the model's state and the Adam state; run
+# here and in a process where flax, msgpack and jax cannot load
+RESUMED_DIGEST = """
+from yolov4_tpu_torch.config import Config
+from yolov4_tpu_torch.models import build_model
+from yolov4_tpu_torch.optim import build_optimizer
+from yolov4_tpu_torch.utils.checkpoint import load_checkpoint_raw
+from yolov4_tpu_torch.utils.convert import bundle_from_jax
+
+
+def resumed_digest(path, raw_cfg):
+    cfg = Config.from_dict(raw_cfg)
+    model = build_model(cfg, device="cpu", train=True)
+    opt = build_optimizer(cfg, model)
+    bundle = bundle_from_jax(load_checkpoint_raw(path), opt, model, path)
+    model.load_state_dict(bundle["variables"])
+    opt.load_state_dict(bundle["opt_state"])
+    tensors = list(model.state_dict().values()) + [
+        t for s in opt.state_dict()["state"].values() for t in s.values()]
+    return len(tensors), float(sum(t.double().sum() for t in tensors))
+"""
 
 
 def test_reader_needs_neither_flax_nor_msgpack(pair, tmp_path):
-    path = jax_ckpt.save_checkpoint(_bundle(pair["jvars"]), False,
-                                    output_dir=str(tmp_path),
+    """Weights and a resume's whole state (variables, optax's Adam state,
+    meta) read in a process where flax, msgpack and jax cannot load."""
+    bundle = dict(_bundle(pair["jvars"]),
+                  opt_state=_adam_state(pair["jvars"]["params"]))
+    path = jax_ckpt.save_checkpoint(bundle, False, output_dir=str(tmp_path),
                                     filename="m.ckpt")
     probe = (
         "import sys\n"
@@ -224,10 +276,16 @@ def test_reader_needs_neither_flax_nor_msgpack(pair, tmp_path):
         "    sys.modules[name] = None\n"
         "from yolov4_tpu_torch.utils.convert import load_weights\n"
         f"sd = load_weights({str(path)!r})\n"
-        "print(len(sd), float(sum(v.double().sum() for v in sd.values())))\n")
+        "print(len(sd), float(sum(v.double().sum() for v in sd.values())))\n"
+        + RESUMED_DIGEST +
+        f"print(*resumed_digest({str(path)!r}, {SMALL_CFG!r}))\n")
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                          text=True, timeout=300, check=True).stdout.split()
     want = load_weights(path)
     assert int(out[0]) == len(want)
     assert float(out[1]) == float(sum(v.double().sum()
                                       for v in want.values()))
+    here = {}
+    exec(RESUMED_DIGEST, here)
+    n, total = here["resumed_digest"](str(path), SMALL_CFG)
+    assert (int(out[2]), float(out[3])) == (n, total)

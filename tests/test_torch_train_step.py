@@ -380,6 +380,9 @@ def test_checkpoint_round_trip(tmp_path):
     for sa, sb in zip(opt.state_dict()["state"].values(),
                       opt2.state_dict()["state"].values()):
         assert torch.equal(sa["momentum_buffer"], sb["momentum_buffer"])
+    # a .ckpt is read as the JAX package's msgpack tree, and a file that
+    # holds no such tree (here a msgpack list) is refused
+    (tmp_path / "x.ckpt").write_bytes(b"\x93\x01\x02\x03")
     with pytest.raises(ValueError, match="JAX package checkpoint"):
         ckpt_lib.load_checkpoint_raw(str(tmp_path / "x.ckpt"))
 

@@ -39,7 +39,7 @@ from yolov4_tpu_torch.models.layers import convert_sync_bn
 from yolov4_tpu_torch.parallel import dist as dist_lib
 from yolov4_tpu_torch.parallel.train_step import TrainState
 from yolov4_tpu_torch.utils import checkpoint as ckpt_lib
-from yolov4_tpu_torch.utils.convert import load_weights
+from yolov4_tpu_torch.utils.convert import bundle_from_jax, load_weights
 from yolov4_tpu_torch.utils.logging import get_logger
 from yolov4_tpu_torch.utils.metrics import AverageMeter, MetricsJSONL
 from yolov4_tpu_torch.utils.profiling import StepProfiler
@@ -165,8 +165,16 @@ def make_eval_step(model: nn.Module,
 
 
 def _refuse_foreign_resume(path: str, raw) -> None:
-    """A resume continues the port's own Adam state and schedule: a torch
-    file without them (a reference classifier checkpoint) is refused."""
+    """A resume continues an Adam state and a schedule: the port's own, or
+    a JAX package classifier ``.ckpt``'s. A file without them is refused:
+    a reference classifier checkpoint (as the JAX package refuses it), or
+    a JAX ``.ckpt`` without ``opt_state``."""
+    if ckpt_lib.is_jax_layout(raw) and "opt_state" not in raw:
+        raise ValueError(
+            f"--resume {path}: this JAX package checkpoint holds no "
+            "opt_state (the optimizer's state), which a classifier resume "
+            "continues; evaluate its weights with -e, or graft its backbone "
+            "through MODEL.BACKBONE_PRETRAINED")
     if not (isinstance(raw, dict) and "variables" in raw
             and "opt_state" in raw):
         raise ValueError(
@@ -185,8 +193,9 @@ class ClassifierTrainer:
     the same on every rank. ``batch_size`` is per rank. Only rank 0 writes
     metrics.jsonl, checkpoints and the profiler trace.
 
-    ``resume``: a checkpoint of this trainer to continue from (a mid-epoch
-    one re-enters its epoch at the next batch). With ``evaluate_only`` it
+    ``resume``: a checkpoint of this trainer, or a JAX package
+    ClassifierTrainer's ``.ckpt``, to continue from (a mid-epoch one
+    re-enters its epoch at the next batch). With ``evaluate_only`` it
     may also be a JAX package ``.ckpt`` or any weights file
     ``utils/convert.load_weights`` reads: the weights alone are loaded and
     evaluated."""
@@ -286,8 +295,12 @@ class ClassifierTrainer:
 
     def _resume(self, path: str) -> None:
         """Every rank reads the same checkpoint."""
-        raw = ckpt_lib.load_checkpoint_raw(path)   # refuses a JAX .ckpt
+        raw = ckpt_lib.load_checkpoint_raw(path)
         _refuse_foreign_resume(path, raw)
+        if ckpt_lib.is_jax_layout(raw):
+            # the JAX ClassifierTrainer's resume: variables, optax's Adam
+            # state and the counters
+            raw = bundle_from_jax(raw, self.optimizer, self.model, path)
         self.model.load_state_dict(raw["variables"])
         self.optimizer.load_state_dict(raw["opt_state"])
         meta = raw.get("meta", {})

@@ -41,8 +41,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--val-size", type=int, default=288)
     parser.add_argument("--num-classes", type=int, default=1000)
     parser.add_argument("--resume", type=str, default=None,
-                        help="checkpoint.pth to resume from; with -e, any "
-                             "weights file (a JAX package .ckpt too)")
+                        help="checkpoint.pth, or the JAX package's "
+                             "checkpoint.ckpt (its Adam state and schedule "
+                             "position carried), to resume from; with -e, "
+                             "any weights file")
     parser.add_argument("-e", "--evaluate", action="store_true")
     parser.add_argument("--print-freq", type=int, default=10)
     parser.add_argument("--opt-level", type=str, default="O1",

@@ -44,6 +44,7 @@ from yolov4_tpu_torch.optim import build_lr_schedule, build_optimizer
 from yolov4_tpu_torch.parallel import create_train_state, make_train_step
 from yolov4_tpu_torch.parallel import dist as dist_lib
 from yolov4_tpu_torch.utils import checkpoint as ckpt_lib
+from yolov4_tpu_torch.utils.convert import bundle_from_jax
 from yolov4_tpu_torch.utils.logging import get_logger
 from yolov4_tpu_torch.utils.metrics import AverageMeter, MetricsJSONL
 from yolov4_tpu_torch.utils.profiling import StepProfiler
@@ -181,9 +182,16 @@ class Trainer:
         return bundle
 
     def _resume(self, path: str) -> None:
-        """Every rank reads the same checkpoint."""
+        """Every rank reads the same checkpoint: the port's, or a JAX
+        package ``.ckpt`` mapped onto the port's layout (the JAX Trainer's
+        resume rules: training weights from ``raw_params`` when there, the
+        EMA from ``variables``, optax's state, the counters). Neither file
+        holds an accumulation window's partial gradient sum: a resume in
+        mid-window starts it again from zero, as the JAX Trainer's does."""
         logger.info(f"resuming from {path}")
         raw = ckpt_lib.load_checkpoint_raw(path)
+        if ckpt_lib.is_jax_layout(raw):
+            raw = bundle_from_jax(raw, self.optimizer, self.model, path)
         if "variables" not in raw:
             raise ValueError(f"{path} is not a training checkpoint of the "
                              "port (no 'variables'); use "

@@ -3,7 +3,7 @@ main_amp.py).
 
 Usage:
     python -m yolov4_tpu_torch.train COCO -c configs/yolov4_Tianxiaomo.cfg \
-        [--resume outputs/.../checkpoint.pth] [-e] [--print-freq 10] \
+        [--resume outputs/.../checkpoint.{pth,ckpt}] [-e] [--print-freq 10] \
         [--profile N] [--opt-level O0|O1|O2|O3] [--sync_bn] \
         [--deterministic] [--seed 0] [--device cuda]
 
@@ -27,7 +27,9 @@ the reference (main_amp.py:34-58):
     weights (bfloat16 needs no loss scaling);
   * --sync_bn is accepted and not applied, as in the reference's YOLO
     path (per-replica BN);
-  * resume restores the optimizer and the schedule's step for real;
+  * resume restores the optimizer and the schedule's step for real,
+    from the port's checkpoint.pth or the JAX package's checkpoint.ckpt
+    (optax's Adam or SGD state, the EMA, the counters);
   * the log goes to stdout and, once the config is read, to
     ``OUTPUT_DIR/stdout.log`` as well;
   * ``AUGMENTATION.DEVICE: true`` augments on the card inside the train
@@ -47,7 +49,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("-c", "--cfg", type=str,
                         default="configs/yolov4_default.cfg")
     parser.add_argument("--resume", type=str, default=None,
-                        help="checkpoint.pth to resume from")
+                        help="checkpoint.pth to resume from, or the JAX "
+                             "package's checkpoint.ckpt (its optimizer "
+                             "state, EMA and schedule position carried)")
     parser.add_argument("-e", "--evaluate", action="store_true",
                         help="evaluate on val2017 and exit")
     parser.add_argument("--print-freq", type=int, default=10)

@@ -12,11 +12,16 @@ step, the best APs and, for a mid-epoch save, ``mid_epoch`` and
 so a preemption never leaves a truncated ``checkpoint.pth`` or
 ``model_best.pth``; a ``.meta.json`` copy of ``meta`` sits beside each.
 
+``load_checkpoint_raw`` reads what a resume continues from: a port
+checkpoint, or a JAX package ``.ckpt`` as its raw tree tagged with
+``"layout": "jax"`` (``is_jax_layout``), which each trainer maps onto its
+model and optimizer with ``utils/convert.bundle_from_jax`` (optax's Adam
+and SGD state included).
+
 ``load_pretrained_backbone`` grafts the backbone of a port checkpoint, of
 a reference ``.pth.tar`` (reference yolov4.py:295-302) or of a JAX package
 ``.ckpt`` (its ``backbone`` subtree, as the JAX package's
-``load_pretrained_backbone``). A resume refuses a ``.ckpt``: the JAX
-optimizer state has no mapping onto torch's.
+``load_pretrained_backbone``).
 """
 
 from __future__ import annotations
@@ -36,17 +41,7 @@ from yolov4_tpu_torch.utils.convert import (load_jax_checkpoint,
 CKPT_NAME = "checkpoint.pth"
 BEST_NAME = "model_best.pth"
 META_SUFFIX = ".meta.json"
-
-
-def refuse_jax_checkpoint(path: str) -> None:
-    """A resume needs the optimizer's state, and a JAX package ``.ckpt``
-    holds optax's, which has no mapping onto torch.optim's."""
-    if str(path).endswith(".ckpt"):
-        raise ValueError(
-            f"{path} is a JAX package checkpoint: its weights load (val, "
-            "detect, serve, MODEL.BACKBONE_PRETRAINED), but a resume needs "
-            "the optimizer state, and optax's has no mapping onto the "
-            "port's; start a new run from its weights instead.")
+LAYOUT_KEY, JAX_LAYOUT = "layout", "jax"
 
 
 def _atomic_write(dst: str, write_fn) -> None:
@@ -79,10 +74,19 @@ def save_checkpoint(bundle: Dict[str, Any], is_best: bool,
 
 
 def load_checkpoint_raw(path: str) -> Dict[str, Any]:
-    """A bundle written by save_checkpoint, on the CPU (what a resume
-    reads)."""
-    refuse_jax_checkpoint(path)
+    """What a resume reads, on the CPU: a bundle written by
+    save_checkpoint, or a JAX package ``.ckpt`` as its raw tree (HWIO
+    kernels, optax's ``opt_state``) tagged with ``"layout": "jax"``."""
+    if str(path).endswith(".ckpt"):
+        raw = dict(load_jax_checkpoint(path))
+        raw[LAYOUT_KEY] = JAX_LAYOUT
+        return raw
     return torch_load(path)
+
+
+def is_jax_layout(raw: Any) -> bool:
+    """True for a JAX package ``.ckpt`` read by load_checkpoint_raw."""
+    return isinstance(raw, dict) and raw.get(LAYOUT_KEY) == JAX_LAYOUT
 
 
 def load_pretrained_backbone(model: nn.Module, path: str) -> None:

@@ -12,6 +12,10 @@ plain ``load_state_dict``. This module adds:
     ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
     ``running_var``, plus ``num_batches_tracked`` = 0 for each BatchNorm
     so that a strict load succeeds;
+  * ``opt_state_from_jax``: the JAX package's optax state (a ``.ckpt``'s
+    ``opt_state``) -> a ``torch.optim`` state dict for the port's Adam or
+    SGD, and ``bundle_from_jax``: a JAX trainer's ``.ckpt`` -> the port's
+    resume bundle (utils/checkpoint.py);
   * ``quant_state_from_jax``: the JAX package's int8_static "quant"
     collection -> an int8_static state a Predictor keeps (its
     ``quant_state``);
@@ -154,34 +158,164 @@ def quant_state_from_jax(quant: Mapping[str, Any], model) -> Dict[
     return out
 
 
+def _leaves(tree: Mapping[str, Any], prefix: Path = ()):
+    """(path, leaf) of a nested-dict pytree, depth first in key order."""
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _leaf_to_torch(path: Path, value) -> torch.Tensor:
+    """One array of a JAX tree as a float32 CPU tensor in the port's
+    layout: a 4-D ``kernel`` HWIO -> OIHW, a 2-D (Dense) one transposed."""
+    if isinstance(value, torch.Tensor):  # a bfloat16 leaf
+        value = value.float().numpy()
+    arr = np.asarray(value, dtype=np.float32)
+    if path[-1] == "kernel":
+        if arr.ndim == 4:
+            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+        elif arr.ndim == 2:
+            arr = np.transpose(arr, (1, 0))
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
 def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """{'params', 'batch_stats'} pytrees of arrays -> the port's
     state_dict (float32 tensors on the CPU)."""
     out: Dict[str, torch.Tensor] = {}
-
-    def walk(collection, tree, prefix: Path):
-        for key, value in tree.items():
-            if isinstance(value, Mapping):
-                walk(collection, value, prefix + (key,))
-                continue
-            if isinstance(value, torch.Tensor):  # a bfloat16 leaf
-                value = value.float().numpy()
-            arr = np.asarray(value, dtype=np.float32)
-            if key == "kernel":
-                if arr.ndim == 4:
-                    arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-                elif arr.ndim == 2:
-                    arr = np.transpose(arr, (1, 0))
-            name = flax_path_to_torch_key(collection, prefix + (key,))
-            out[name] = torch.from_numpy(np.ascontiguousarray(arr))
-            if collection == "batch_stats" and key == "mean":
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            name = flax_path_to_torch_key(collection, path)
+            out[name] = _leaf_to_torch(path, value)
+            if collection == "batch_stats" and path[-1] == "mean":
                 stem = name[:-len("running_mean")]
                 out[stem + "num_batches_tracked"] = torch.tensor(0)
-
-    for collection in ("params", "batch_stats"):
-        if collection in variables:
-            walk(collection, variables[collection], ())
     return out
+
+
+def _params_tree(tree: Any, params: Mapping[str, torch.Tensor],
+                 what: str) -> Dict[str, torch.Tensor]:
+    """A JAX tree shaped like the model's params (an optax moment or
+    trace) -> {parameter name: tensor in the parameter's layout}. Raises,
+    naming the path, on a leaf the model lacks, a parameter the tree
+    lacks, or a shape that differs."""
+    if not isinstance(tree, Mapping):
+        raise ValueError(f"{what}: expected a tree of the model's "
+                         f"parameters, got {type(tree).__name__}")
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(tree):
+        where = f"{what}/{'/'.join(path)}"
+        try:
+            name = flax_path_to_torch_key("params", path)
+        except (KeyError, ValueError):
+            raise ValueError(f"{where}: not a parameter leaf") from None
+        if name not in params:
+            raise ValueError(f"{where} ({name}): the model has no such "
+                             "parameter")
+        t = _leaf_to_torch(path, value)
+        if t.shape != params[name].shape:
+            raise ValueError(f"{where} ({name}): shape {tuple(t.shape)} in "
+                             f"the file, {tuple(params[name].shape)} in the "
+                             "model")
+        out[name] = t
+    missing = [n for n in params if n not in out]
+    if missing:
+        raise ValueError(f"{what}: {len(missing)} parameter(s) of the model "
+                         f"missing, e.g. {missing[:3]}")
+    return out
+
+
+def _expect_keys(tree: Any, keys, what: str, kind: str) -> None:
+    got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+    if got != sorted(keys):
+        raise ValueError(
+            f"{what}: the port's {kind} needs optax's state with the keys "
+            f"{sorted(keys)}, the file holds {got} (another optimizer's "
+            "state, or a truncated one)")
+
+
+def param_names_in_order(optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module) -> List[str]:
+    """``model``'s parameter names in the order of
+    ``optimizer.param_groups``: the indices of its state dict."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups
+            for p in g["params"]]
+
+
+def opt_state_from_jax(opt_state: Mapping[str, Any],
+                       optimizer: torch.optim.Optimizer,
+                       model: torch.nn.Module) -> Dict[str, Any]:
+    """The optax state of a JAX package ``.ckpt`` -> a dict shaped like
+    ``optimizer.state_dict()`` (pass it to ``optimizer.load_state_dict``,
+    which moves each tensor to its parameter's device and dtype).
+
+    The JAX package's ADAM is ``optax.scale_by_adam(0.9, 0.999, 1e-8)``,
+    whose state ``ScaleByAdamState(count, mu, nu)`` the file holds as
+    ``{"count", "mu", "nu"}``: every parameter gets ``step = count``,
+    ``exp_avg = mu`` and ``exp_avg_sq = nu`` (both rules correct the bias
+    by the update count and add eps outside the square root). Its SGD is
+    ``chain(masked add_decayed_weights, trace)``, held as ``{"0":
+    {"inner_state": {}}, "1": {"trace"}}``: ``momentum_buffer = trace``.
+    Each tree gets the weights' layout change and is indexed by the
+    parameter's position in ``optimizer.param_groups`` (SGD's two groups
+    split by the decay mask). Any other structure raises: there is no
+    fallback to a fresh state."""
+    params = dict(model.named_parameters())
+    order = param_names_in_order(optimizer, model)
+    what = "opt_state"
+    if isinstance(optimizer, torch.optim.Adam):
+        _expect_keys(opt_state, ("count", "mu", "nu"), what, "Adam")
+        count = np.asarray(opt_state["count"])
+        if count.shape != () or count.dtype.kind not in "iu":
+            raise ValueError(f"{what}/count: an integer scalar expected, "
+                             f"got {count.dtype} {count.shape}")
+        mu = _params_tree(opt_state["mu"], params, f"{what}/mu")
+        nu = _params_tree(opt_state["nu"], params, f"{what}/nu")
+        state = {i: {"step": torch.tensor(float(count)),
+                     "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                 for i, n in enumerate(order)}
+    elif isinstance(optimizer, torch.optim.SGD):
+        _expect_keys(opt_state, ("0", "1"), what, "SGD")
+        _expect_keys(opt_state["0"], ("inner_state",), f"{what}/0",
+                     "SGD's masked weight decay")
+        inner = opt_state["0"]["inner_state"]
+        if not (inner is None or (isinstance(inner, Mapping) and not inner)):
+            raise ValueError(f"{what}/0/inner_state: the masked weight "
+                             "decay keeps no state, the file holds some")
+        _expect_keys(opt_state["1"], ("trace",), f"{what}/1", "SGD momentum")
+        trace = _params_tree(opt_state["1"]["trace"], params,
+                             f"{what}/1/trace")
+        state = {i: {"momentum_buffer": trace[n]}
+                 for i, n in enumerate(order)}
+    else:
+        raise ValueError(f"no mapping of optax's state onto "
+                         f"{type(optimizer).__name__}")
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def bundle_from_jax(raw: Mapping[str, Any], optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module, path: str = "") -> Dict[str, Any]:
+    """A JAX package trainer's ``.ckpt`` (its raw tree) -> the port's
+    resume bundle (utils/checkpoint.py): ``variables`` (the EMA weights
+    when the file keeps an EMA) and ``raw_params`` as state dicts,
+    ``opt_state`` for ``optimizer`` where the file has one, and
+    ``meta``."""
+    if "variables" not in raw:
+        raise ValueError(f"{path} is not a JAX package training checkpoint "
+                         "(no 'variables')")
+    bundle = {"variables": state_dict_from_jax(raw["variables"]),
+              "meta": dict(raw.get("meta", {}))}
+    if "raw_params" in raw:
+        bundle["raw_params"] = _params_tree(
+            raw["raw_params"], dict(model.named_parameters()), "raw_params")
+    if "opt_state" in raw:
+        bundle["opt_state"] = opt_state_from_jax(raw["opt_state"],
+                                                 optimizer, model)
+    return bundle
 
 
 def _strip_ddp(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
