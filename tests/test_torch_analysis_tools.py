@@ -1,6 +1,7 @@
 """The port's analysis tools on the CPU (``--device cpu``, WIDTH = DEPTH =
-0.25, 64x64, float32): tools/attr_trace.py (scope attribution, also on a
-made-up CUDA trace that exercises each way a kernel finds its scope),
+0.25, 64x64, float32): tools/attr_trace.py (scope attribution by
+utils/profiling.attribute, also on a made-up CUDA trace that exercises
+each way a kernel finds its scope),
 tools/check_csp_fused.py (the PALLAS_CSP forward against the plain one)
 and tools/act_bound.py (the Mish swap), and each tool's flags against
 those of its JAX original."""
@@ -19,6 +20,7 @@ from yolov4_tpu_torch.config import Config
 from yolov4_tpu_torch.models import build_model, layers
 from yolov4_tpu_torch.models.layers import ACTIVATIONS, ConvBNAct
 from yolov4_tpu_torch.tools import act_bound, attr_trace, check_csp_fused
+from yolov4_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -59,7 +61,9 @@ def test_attr_trace_attributes_every_op_to_a_scope(argv, capsys):
                build_model(cfg, device="cpu").named_modules()}
     scopes = {scope for _, scope, _ in result["kernels_ms_per_iter"]}
     assert result["unattributed_share"] == 0.0
-    assert scopes <= modules | {"input", "postprocess", "run"}
+    assert scopes <= modules | {"predictor.program", "model.backbone",
+                                "model.neck", "model.head", "postprocess",
+                                "run"}
     assert "postprocess" in scopes and any(
         s.startswith("backbone.stage3.") for s in scopes)
     total = result["cpu_op_ms_per_iter"]
@@ -111,7 +115,7 @@ def test_attr_trace_finds_each_kernels_scope_on_a_cuda_trace():
         _x("gpu_user_annotation", "backbone.stage1", 200, 60, 7, 0),
     ]
     names = {"run", "backbone.stage1", "postprocess"}
-    rows = attr_trace.attribute(events, names, "cuda")
+    rows = profiling.attribute(events, names, "cuda")
     got = [(r["name"], r["scope"], r["how"]) for r in rows]
     assert got == [
         ("cudnn_conv", "backbone.stage1", "op"),
@@ -122,14 +126,14 @@ def test_attr_trace_finds_each_kernels_scope_on_a_cuda_trace():
         ("Memset", "postprocess", "custom_op"),
         ("nms_scan_kernel", "postprocess", "custom_op"),
         ("topk_kernel", "postprocess", "op"),
-        ("mystery", attr_trace.UNATTRIBUTED, None)]
+        ("mystery", profiling.UNATTRIBUTED, None)]
     summary = attr_trace.summarize(rows, 1, 1)
     assert summary["groups_ms"] == pytest.approx(
         {"backbone": 0.055, "postprocess": 0.010,
-         attr_trace.UNATTRIBUTED: 0.001})
+         profiling.UNATTRIBUTED: 0.001})
     assert summary["unattributed_share"] == pytest.approx(1 / 66)
     # two runs of K2's kernels and one call of its op: no pairing
-    rows = attr_trace.attribute(events + [
+    rows = profiling.attribute(events + [
         _x("kernel", "csp_wgmma_kernel", 280, 1, 7, 0)], names, "cuda")
     assert {r["how"] for r in rows if r["name"].startswith("csp_")} == \
         {None}

@@ -42,7 +42,7 @@ from yolov4_tpu_torch.utils import checkpoint as ckpt_lib
 from yolov4_tpu_torch.utils.convert import bundle_from_jax, load_weights
 from yolov4_tpu_torch.utils.logging import get_logger
 from yolov4_tpu_torch.utils.metrics import AverageMeter, MetricsJSONL
-from yolov4_tpu_torch.utils.profiling import StepProfiler
+from yolov4_tpu_torch.utils.profiling import StepProfiler, span
 
 logger = get_logger(__name__)
 
@@ -117,21 +117,23 @@ def make_cls_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
              labels: torch.Tensor) -> TrainState:
         model.train()
         x = normalize_images(u8, _param_dtype(model))
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=autocast):
+        with span("train.forward"), torch.autocast(
+                x.device.type, dtype=torch.bfloat16, enabled=autocast):
             logits = forward(x)
         loss = smoothed_ce(logits, labels)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         loss = loss.detach()
         if dist is not None:
             loss = loss.clone()
             dist_lib.all_reduce_mean_([loss] + ([] if sync_bn else bn_stats),
                                       dist)
-        lr = lr_schedule(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
+        with span("train.update"):
+            lr = lr_schedule(state.step)
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
         state.step += 1
         state.loss = loss
         return state

@@ -53,6 +53,7 @@ from yolov4_tpu_torch.ops.replica import group_scope
 from yolov4_tpu_torch.parallel.mesh import Mesh, ReplicaRunner
 # the entry points import the device rule from here
 from yolov4_tpu_torch.utils.device import device_scope, resolve_device
+from yolov4_tpu_torch.utils.profiling import span
 
 QuantState = Dict[str, Dict[str, torch.Tensor]]
 
@@ -99,7 +100,9 @@ def detection_forward(model: nn.Module, x: torch.Tensor,
     postprocess (K1). Returns (detections, valid[, relevant_count]).
     ``settings``: the keyword arguments of ops/postprocess.postprocess
     after its first two."""
-    return postprocess(model(model_input(model, x)), **settings)
+    predictions = model(model_input(model, x))
+    with span("postprocess"):
+        return postprocess(predictions, **settings)
 
 
 def detection_program(model: nn.Module, flat: torch.Tensor, img_size: int,
@@ -149,10 +152,11 @@ def upload_nhwc(images: np.ndarray, batch_size: int,
                 device: torch.device) -> torch.Tensor:
     """Pad an NHWC host batch and copy it to ``device`` (through pinned
     memory, without waiting, to a card)."""
-    host = torch.from_numpy(pad_batch(images, batch_size))
-    if device.type == "cuda":
-        host = host.pin_memory()
-    return host.to(device, non_blocking=True)
+    with span("predictor.upload"):
+        host = torch.from_numpy(pad_batch(images, batch_size))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(device, non_blocking=True)
 
 
 def start_fetch(outs: Tuple[torch.Tensor, ...],
@@ -428,7 +432,8 @@ class Predictor:
         forward, decode, postprocess. The same function as ``run_wire``
         on the batch's planar wire. int8_static runs on the calibrated
         scales, or on ``quant_state`` when given."""
-        with self._scope(self.device, quant_state):
+        with self._scope(self.device, quant_state), \
+                span("predictor.program"):
             return detection_forward(self.model, images.permute(0, 3, 1, 2),
                                      self.settings())
 

@@ -38,6 +38,7 @@ from yolov4_tpu_torch.models.decode import decode_all, masked_anchors
 from yolov4_tpu_torch.models.head import Head
 from yolov4_tpu_torch.models.layers import apply_quant, init_weights
 from yolov4_tpu_torch.models.neck import Neck
+from yolov4_tpu_torch.utils.profiling import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -93,11 +94,16 @@ class YOLOv4(nn.Module):
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
             x = x.to(self.backbone.stem.conv.weight.dtype)
-        raws = self.head(*self.neck(*self.backbone(x)))
-        if not decode:
-            return raws
-        grids = [getattr(self, f"anchors_grid{i}") for i in range(3)]
-        return decode_all(raws, grids, training=self.training)
+        with span("model.backbone"):
+            feats = self.backbone(x)
+        with span("model.neck"):
+            feats = self.neck(*feats)
+        with span("model.head"):
+            raws = self.head(*feats)
+            if not decode:
+                return raws
+            grids = [getattr(self, f"anchors_grid{i}") for i in range(3)]
+            return decode_all(raws, grids, training=self.training)
 
 
 def quant_mode(model_cfg: Dict) -> str:

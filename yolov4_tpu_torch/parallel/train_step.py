@@ -60,6 +60,7 @@ from torch import nn
 from yolov4_tpu_torch.data.device_aug import augment_batch
 from yolov4_tpu_torch.models.decode import at_least_f32
 from yolov4_tpu_torch.parallel.dist import all_reduce_mean_, wrap_ddp
+from yolov4_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -162,16 +163,18 @@ def make_train_step(model: nn.Module, criterion, optimizer: torch.optim.Optimize
         sync = (ddp.no_sync() if ddp is not None and not update
                 else contextlib.nullcontext())
         with sync:
-            with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                                enabled=autocast):
+            with span("train.forward"), torch.autocast(
+                    x.device.type, dtype=torch.bfloat16, enabled=autocast):
                 outputs = (model if ddp is None else ddp)(x)
-            loss = criterion(outputs, {"padded_labels": labels})
+            with span("train.loss"):
+                loss = criterion(outputs, {"padded_labels": labels})
             scaled = loss / accumulation_steps
-            if skip_nonfinite:
-                grads = torch.autograd.grad(scaled, params,
-                                            allow_unused=True)
-            else:
-                scaled.backward()
+            with span("train.backward"):
+                if skip_nonfinite:
+                    grads = torch.autograd.grad(scaled, params,
+                                                allow_unused=True)
+                else:
+                    scaled.backward()
         loss = loss.detach()
         if dist is not None:
             # rank-means of the loss and the BN statistics (and, past DDP,
@@ -195,17 +198,19 @@ def make_train_step(model: nn.Module, criterion, optimizer: torch.optim.Optimize
                     b.copy_(torch.where(finite, b, s))
 
         if update:
-            lr = lr_schedule(state.step)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
-            if ema_decay > 0.0:
-                with torch.no_grad():
-                    ema = [state.ema_params[n] for n in names]
-                    torch._foreach_mul_(ema, ema_decay)
-                    torch._foreach_add_(ema, [p.detach() for p in params],
-                                        alpha=1.0 - ema_decay)
+            with span("train.update"):
+                lr = lr_schedule(state.step)
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+                if ema_decay > 0.0:
+                    with torch.no_grad():
+                        ema = [state.ema_params[n] for n in names]
+                        torch._foreach_mul_(ema, ema_decay)
+                        torch._foreach_add_(ema,
+                                            [p.detach() for p in params],
+                                            alpha=1.0 - ema_decay)
         state.step += 1
         state.loss = loss
         return state

@@ -5,13 +5,17 @@ Usage (on a machine with a CUDA card):
     python -m yolov4_tpu_torch.tools.profile_train [--batch 8] [--size 608]
 
 Builds the full-width YOLOv4 of the default config for training (float32
-weights, bfloat16 autocast, Adam, channels-last), draws one batch of
-random images and boxes, takes three warm steps, and then profiles
-``--iters`` steps with ``torch.profiler``, one profiler window per phase
-in the order of ``parallel/train_step.py``: forward + loss, backward,
-optimizer update (with the zeroing of the gradients). Prints, per phase,
-the device time per step by kernel group (the groups of
-tools/profile_forward.py plus the optimizer's multi-tensor kernels), the
+weights, bfloat16 autocast, Adam, channels-last) and its step,
+``parallel/train_step.make_train_step``, draws one batch of random images
+and boxes, takes three warm steps, and then profiles ``--iters`` steps in
+one ``torch.profiler`` window. The phases are the step's own spans
+(``train.forward``, ``train.loss``, ``train.backward``, ``train.update``):
+each device activity goes to the span around its launch
+(utils/profiling.attribute; the backward's, launched from autograd's
+device thread, to ``train.backward``), and what no span holds to
+``(outside)``. Prints, per phase, the device time per step by kernel
+group (the groups of tools/profile_forward.py plus the optimizer's
+multi-tensor kernels), its host time outside CUDA runtime calls and the
 10 most expensive kernels, then the step's time from CUDA events outside
 the profiler, its peak memory, and the share of the card's bfloat16 peak
 that the model's FLOPs reach (train FLOPs = 3x the forward's, counted
@@ -33,11 +37,17 @@ from yolov4_tpu_torch.config import load_config
 from yolov4_tpu_torch.models import build_model
 from yolov4_tpu_torch.ops.loss import build_criterion
 from yolov4_tpu_torch.optim import build_optimizer
-from yolov4_tpu_torch.parallel.train_step import images_to_input
+from yolov4_tpu_torch.parallel.train_step import (TrainState,
+                                                  images_to_input,
+                                                  make_train_step)
 from yolov4_tpu_torch.tools.profile_forward import GROUPS
+from yolov4_tpu_torch.utils.profiling import (attribute, chrome_events,
+                                              span_host)
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 (NVIDIA data sheet)
 TRAIN_GROUPS = (("optimizer", ("multi_tensor", "foreach", "adam")),) + GROUPS
+PHASES = ("train.forward", "train.loss", "train.backward", "train.update")
+OUTSIDE = "(outside)"
 
 
 def group_of(name: str) -> str:
@@ -97,60 +107,41 @@ def main(argv=None) -> dict:
     cfg = load_config(None)
     model = build_model(cfg, device="cuda", train=True)
     model = model.to(memory_format=torch.channels_last).train()
-    criterion = build_criterion(cfg)
     optimizer = build_optimizer(cfg, model)
+    lr = optimizer.param_groups[0]["lr"]
+    step = make_train_step(model, build_criterion(cfg), optimizer,
+                           lambda _: lr, compute_dtype=torch.bfloat16)
+    state = TrainState()
     images, labels = random_batch(args.batch, args.size)
-    x = images_to_input(images)
-    flops = 3.0 * forward_conv_flops(model, x)
+    flops = 3.0 * forward_conv_flops(model, images_to_input(images))
 
-    def forward_loss():
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            outputs = model(images_to_input(images))
-        return criterion(outputs, {"padded_labels": labels})
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            state = step(state, images, labels)
 
-    def update():
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-
-    def step():
-        forward_loss().backward()
-        update()
-
-    for _ in range(3):
-        step()
+    steps(3)
     torch.cuda.synchronize()
-
-    phases = {"forward+loss": defaultdict(float), "backward": defaultdict(float),
-              "optimizer": defaultdict(float)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(args.iters)
+        torch.cuda.synchronize()
+    events = chrome_events(prof)
+    phases = {name: defaultdict(float) for name in PHASES + (OUTSIDE,)}
     kernels = {name: defaultdict(float) for name in phases}
-
-    def run_profiled(name, fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        for evt in prof.events():
-            # the optimizer's record_function range shows on the device
-            # timeline too; it spans kernels counted on their own
-            if (evt.device_type == torch.autograd.DeviceType.CUDA
-                    and not evt.name.startswith("Optimizer.")):
-                ms = evt.device_time_total / 1e3 / args.iters
-                phases[name][group_of(evt.name)] += ms
-                kernels[name][evt.name] += ms
-        return out
-
-    for _ in range(args.iters):
-        loss = run_profiled("forward+loss", forward_loss)
-        run_profiled("backward", loss.backward)
-        run_profiled("optimizer", update)
+    for r in attribute(events, set(PHASES), "cuda"):
+        name = r["scopes"][0] if r["scopes"] else OUTSIDE
+        ms = r["us"] / 1e3 / args.iters
+        phases[name][group_of(r["name"])] += ms
+        kernels[name][r["name"]] += ms
+    host = span_host(events, PHASES)
 
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     n = 10
     start.record()
-    for _ in range(n):
-        step()
+    steps(n)
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n
@@ -164,6 +155,8 @@ def main(argv=None) -> dict:
         "flop_share_of_bf16_peak": flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS,
         "phases_device_ms": {name: sum(g.values())
                              for name, g in phases.items()},
+        "phases_host_ms": {name: sum(us) / 1e3 / args.iters
+                           for name, us in host.items()},
         "groups_ms": {name: dict(sorted(g.items(), key=lambda kv: -kv[1]))
                       for name, g in phases.items()},
         "top_kernels_ms": {name: [(k[:100], ms) for k, ms in sorted(
@@ -178,7 +171,8 @@ def main(argv=None) -> dict:
           f"({result['flop_share_of_bf16_peak']:.1%} of the bf16 peak)")
     for name, groups in result["groups_ms"].items():
         total = result["phases_device_ms"][name]
-        print(f"  {name}: {total:.3f} ms device time per step")
+        print(f"  {name}: {total:.3f} ms device time per step, host "
+              f"{result['phases_host_ms'].get(name, 0.0):.3f} ms")
         for group, ms in groups.items():
             print(f"    {group:14s} {ms:9.3f} ms  {ms / total:6.1%}")
         for kname, ms in result["top_kernels_ms"][name][:5]:
