@@ -9,13 +9,15 @@ CUDA toolkit):
 Phases; any failure ends the run with a non-zero exit code and no result
 line:
 
-  1. build   — compile yolov4_tpu_torch/csrc/nms.cu and csrc/csp.cu with
-               nvcc for sm_90a, one nvcc each, started together; print
+  1. build   — compile yolov4_tpu_torch/csrc/nms.cu, csrc/csp.cu and
+               csrc/bn_act.cu with nvcc for sm_90a, one nvcc each, started
+               together; print
                -Xptxas -v's report of each K1 kernel (registers, spills,
                shared memory; none may spill) and of each bf16 K2 kernel
                instance (registers, spills, notes) with its dynamic shared
                memory; the instances the 608 stages launch must not spill
-               and must use more than 48 KB of dynamic shared memory.
+               and must use more than 48 KB of dynamic shared memory; and
+               of each batch_norm_act instance (none may spill).
   2. kernel  — the greedy-NMS kernel (K1) against its plain PyTorch version
                on the card: keep masks bit-equal on the cases of
                tests/test_nms_pallas.py, ragged K, t = 0, K = 6000 (94 mask
@@ -51,7 +53,8 @@ line:
                with the default path's (FUSED_TOL_*); each stage body on its
                real input: K2 against its plain version, its conv launches
                against launch_plan, timed beside the plain version, the
-               default layer-by-layer body and cuDNN's convs alone on the
+               default body (cuDNN's convs, each followed by one
+               batch_norm_act pass, phase 20) and cuDNN's convs alone on the
                same folded weights (a yardstick the port never calls), with
                its bound, the launch plan's bound and the achieved TFLOP/s,
                and K2's device time with a spin kernel queued ahead;
@@ -73,7 +76,8 @@ line:
      full      float32 weights, Adam: 3 warm steps, then 20 timed with
                CUDA events (ms per step, img/s, peak memory, the share of
                the bf16 peak that the model's FLOPs reach, train FLOPs =
-               3x the forward's conv FLOPs); a fresh model's 30 steps on
+               3x the forward's conv FLOPs; no hand-written kernel
+               launches in them); a fresh model's 30 steps on
                one batch without warmup (finite, falling loss); then
                ``Trainer.fit`` on a synthetic COCO (64 train2017 JPEGs,
                mosaic; 16 val2017 images, PALLAS_CSP on;
@@ -279,9 +283,23 @@ line:
                val2017-scale set under 60 s, and at 500 images stats equal
                to the numpy matcher's. K1 and K2 counted over (a)-(f).
 
+ 20. bn_act  — the eval BN and activation kernel (csrc/bn_act.cu; run
+               after phase 7): the 608/b64 bfloat16 Predictor with
+               PALLAS_CSP on and off, BN re-drawn, launches counted over
+               one batch each (K1 1, K2 3 or 0, batch_norm_act 73 or 107,
+               BN_ACT_LAUNCHES); on that batch's conv outputs at the stem,
+               stage 5's base conv and a neck leaky site (BN_ACT_SITES):
+               the kernel against its plain version (ops/bn_act.py;
+               bfloat16 within one ulp of its float32 result, contiguous
+               NCHW bit-equal to channels-last, float32 within
+               BN_ACT_TOL_F32), timed as in phase 3 beside the plain
+               version and the eval chain it replaces, with its bound (a
+               bfloat16 read and write an element); the host's enqueue a
+               call, of ConvBNAct's call, the op and the chain.
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
-``{"kernels": [...], "library_products": [...]}`` (K1 and K2, then the
-int8 product, a library call) and, last, ``{"ok": true, "device":
+``{"kernels": [...], "library_products": [...]}`` (K1, K2 and
+batch_norm_act, then the int8 product, a library call) and, last, ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -382,6 +400,22 @@ DDP_VAL_IMAGES = 17
 STAGE_SHAPES = ((16, 304, 304, 64, 0), (16, 152, 152, 128, 2),
                 (16, 76, 76, 256, 8))
 RAGGED_SHAPES = ((2, 9, 13, 16, 0), (3, 11, 7, 24, 3), (2, 5, 7, 18, 1))
+# The eval BN and activation kernel (batch_norm_act) against its plain
+# version on the same conv output: bfloat16 within one bfloat16 ulp of the
+# plain version's float32 result; float32 within BN_ACT_TOL_F32 of the size
+# of each element's terms, |result| + |x scale| + |bias| + |mean scale|
+# (where BN's shift cancels its terms to near zero, the two orders of the
+# products differ by a few ulps of the terms, not of the result).
+BN_ACT_TOL_F32 = 1e-6
+# its sites in a 608/b64 bfloat16 forward: the stem, stage 5's base conv
+# (1024 channels at 19x19) and a neck leaky site (256 at 76x76); its
+# launches a batch with PALLAS_CSP (K2 takes stages 1-3's bodies) and
+# without; the small shape its host enqueue is timed at
+BN_ACT_BATCH = 64
+BN_ACT_SITES = (("backbone.stem", "mish"), ("backbone.stage5.base", "mish"),
+                ("neck.fpn.module3.1", "leaky_relu"))
+BN_ACT_LAUNCHES = {"pallas_csp": 73, "default": 107}
+BN_ACT_ENQUEUE_SHAPE = (2, 64, 16, 16)
 
 
 def log(msg: str) -> None:
@@ -1113,6 +1147,192 @@ def phase_fused(cfg_cls, build_model, Predictor, csp_cuda, plain,
     return per_stage
 
 
+def bn_act_build_report(bn_act_cuda, report):
+    """-Xptxas -v's figures for each batch_norm_act instance; none may
+    spill."""
+    rows = bn_act_cuda.kernel_report()
+    for r in rows:
+        log(f"[build] batch_norm_act {r['name']}: ptxas {r['registers']} "
+            f"registers, {r['stack']} B stack, {r['spill_stores']} / "
+            f"{r['spill_loads']} B spill stores / loads")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"batch_norm_act instance spills: {r}")
+    if not rows:
+        raise AssertionError("the build log lacks batch_norm_act")
+    report["bn_act_build"] = rows
+
+
+def check_bn_act(bn_act_cuda, plain, y, norm, act):
+    """batch_norm_act on the conv output ``y`` (bfloat16, channels-last)
+    against its plain version: bfloat16 within one ulp of the plain float32
+    result, contiguous NCHW bit-equal to channels-last, float32 within
+    BN_ACT_TOL_F32 of each element's terms."""
+    from yolov4_tpu_torch.ops.bn_act import bn_terms
+    terms = (norm.weight, norm.bias, norm.running_mean, norm.running_var,
+             norm.eps)
+    f32 = plain(y.float(), *terms, act)
+    got = bn_act_cuda.batch_norm_act_cuda(y, norm, act)
+    nchw = bn_act_cuda.batch_norm_act_cuda(y.contiguous(), norm, act)
+    if got.stride() != y.stride() or not torch.equal(got, nchw):
+        raise AssertionError(f"batch_norm_act {act} {tuple(y.shape)}: "
+                             "channels-last and NCHW outputs differ")
+    del nchw
+    _, e = torch.frexp(f32.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    err = (got.float() - f32).abs()
+    max_ulps = float((err / torch.ldexp(torch.ones_like(f32), e - 8)).max())
+    del e, err
+    equal_share = float((got == plain(y, *terms, act)).float().mean())
+    del got
+    scale, _ = bn_terms(*terms)
+    y32 = y.float()
+    size = ((y32 * scale[:, None, None]).abs()
+            + (norm.bias.abs() + (norm.running_mean * scale).abs()
+               )[:, None, None] + f32.abs())
+    got32 = bn_act_cuda.batch_norm_act_cuda(y32, norm, act)
+    max_rel_f32 = float(((got32 - f32).abs() / size).max())
+    del f32, size, got32, y32
+    res = dict(max_ulps_bf16=max_ulps, bf16_equal_share=equal_share,
+               max_rel_err_f32=max_rel_f32)
+    if max_ulps > 1 or max_rel_f32 > BN_ACT_TOL_F32:
+        raise AssertionError(f"batch_norm_act {act} {tuple(y.shape)}: "
+                             f"{res}")
+    return res
+
+
+def bn_act_enqueue_us(bn_act_cuda, calls=400):
+    """The host's enqueue, microseconds a call at a small shape (the card
+    keeps up): ConvBNAct's call, the op (an exported program's) and the
+    eval chain it replaces, for each activation; median of 3 runs."""
+    from yolov4_tpu_torch.models.layers import ACTIVATIONS, BatchNorm2d
+    norm = BatchNorm2d(BN_ACT_ENQUEUE_SHAPE[1]).cuda().eval()
+    x = torch.randn(BN_ACT_ENQUEUE_SHAPE, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    terms = (norm.weight, norm.bias, norm.running_mean, norm.running_var,
+             norm.eps)
+    fns = {}
+    for act in ("mish", "leaky_relu"):
+        fns[f"{act}_call"] = (lambda a: lambda: bn_act_cuda.
+                              batch_norm_act_cuda(x, norm, a))(act)
+        fns[f"{act}_op"] = (lambda a: lambda: bn_act_cuda.batch_norm_act_op(
+            x, *terms, a))(act)
+        fns[f"{act}_chain"] = (lambda f: lambda: f(norm(x)))(
+            ACTIVATIONS[act])
+
+    def run(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    with torch.inference_mode():
+        for fn in fns.values():
+            run(fn, 50)
+        return {k: float(np.median([run(fn, calls) for _ in range(3)]))
+                for k, fn in fns.items()}
+
+
+def phase_bn_act(cfg_cls, build_model, Predictor, bn_act_cuda, plain,
+                 report):
+    """The eval BN and activation kernel on the main path: the 608/b64
+    bfloat16 Predictor with PALLAS_CSP on and off, BN re-drawn, its
+    launches counted over one batch each; on the conv outputs of
+    BN_ACT_SITES in that batch, the kernel against its plain version and
+    timed beside it, the eval chain it replaces and its bound; the host's
+    enqueue a call. Returns the per-site rows."""
+    from yolov4_tpu_torch.models.layers import FUSED_ACTIVATIONS
+    from yolov4_tpu_torch.ops import kernel_launches, launches_since
+    t0 = time.time()
+    cfg = cfg_cls.from_dict({"MODEL": {"PALLAS_CSP": True}})
+    size, batch = cfg["TEST"]["IMGSIZE"], BN_ACT_BATCH
+    rng = np.random.default_rng(5)
+    sd = redraw_bn(build_model(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(5))
+                   .state_dict(), rng)
+    for key, val in sd.items():
+        if key.endswith("norm.bias"):
+            sd[key] = torch.from_numpy(rng.normal(0, 0.5, val.shape)
+                                       .astype(np.float32))
+    pred = Predictor(cfg, state_dict=sd, img_size=size, batch_size=batch,
+                     device="cuda")
+    del sd
+    pred.warmup()
+    x = pred.upload(rng.integers(0, 256, (batch, size, size, 3),
+                                 dtype=np.uint8))
+    convs = {}
+
+    def keep(name):
+        return lambda mod, inp, out: convs.__setitem__(name, out.clone())
+
+    hooks = [pred.model.get_submodule(name).conv.register_forward_hook(
+        keep(name)) for name, _ in BN_ACT_SITES]
+    torch.cuda.synchronize()
+    before = kernel_launches()
+    pred.run(x)
+    torch.cuda.synchronize()
+    launches = {"pallas_csp": launches_since(before)}
+    for h in hooks:
+        h.remove()
+    bb = pred.model.backbone
+    for stage in (bb.stage1, bb.stage2, bb.stage3):
+        stage.fused = False
+    pred.run(x)
+    torch.cuda.synchronize()
+    before = kernel_launches()
+    pred.run(x)
+    torch.cuda.synchronize()
+    launches["default"] = launches_since(before)
+    want = {key: {"greedy_nms_mask": 1, "fused_csp_stage": 3 * (key ==
+                                                               "pallas_csp"),
+                  "batch_norm_act": n} for key, n in BN_ACT_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"kernel launches in a 608/b{batch} batch: "
+                             f"{launches}, expected {want}")
+    log(f"[bn_act] 608/b{batch} bf16 Predictor batch, kernel launches with "
+        f"PALLAS_CSP {launches['pallas_csp']}, without {launches['default']}")
+
+    sites = []
+    with torch.inference_mode():
+        for name, act in BN_ACT_SITES:
+            site = pred.model.get_submodule(name)
+            if FUSED_ACTIVATIONS.get(site.act) != act:
+                raise AssertionError(f"{name} runs {site.act}, not {act}")
+            y, norm = convs.pop(name), site.norm
+            res = check_bn_act(bn_act_cuda, plain, y, norm, act)
+            ms = cuda_ms(lambda: bn_act_cuda.batch_norm_act_cuda(y, norm,
+                                                                 act))
+            device_ms = cuda_ms(lambda: bn_act_cuda.batch_norm_act_cuda(
+                y, norm, act), queue_ahead=True)
+            terms = (norm.weight, norm.bias, norm.running_mean,
+                     norm.running_var, norm.eps)
+            plain_ms = cuda_ms(lambda: plain(y, *terms, act), iters=5)
+            chain_ms = cuda_ms(lambda: site.act(norm(y)), iters=5)
+            # a bfloat16 read and a bfloat16 write an element
+            bound_ms = 4.0 * y.numel() / PEAK_BYTES * 1e3
+            sites.append(dict(
+                site=name, act=act, shape=list(y.shape),
+                y_std=float(y.float().std()), ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, chain_ms=chain_ms, bound_ms=bound_ms,
+                bound_by="bytes", roofline_pct=100.0 * bound_ms / device_ms,
+                **res))
+            log(f"[bn_act] {name} {act} {tuple(y.shape)}: {ms:.4f} ms "
+                f"(device {device_ms:.4f} ms, {sites[-1]['roofline_pct']:.1f}"
+                f" % of its {bound_ms:.4f} ms bound), plain {plain_ms:.4f} "
+                f"ms, eval chain {chain_ms:.4f} ms; {res}")
+            del y
+            torch.cuda.empty_cache()
+    del pred, x, convs
+    torch.cuda.empty_cache()
+    enqueue = bn_act_enqueue_us(bn_act_cuda)
+    log(f"[bn_act] host enqueue, us a call at {BN_ACT_ENQUEUE_SHAPE}: "
+        f"{enqueue}")
+    report["bn_act"] = dict(launches=launches, sites=sites,
+                            enqueue_us=enqueue, seconds=time.time() - t0)
+    return sites
+
+
 def write_val2017(work, coco_ids, n_images=32, name="val2017", seed=7):
     """A synthetic COCO split (val2017 unless ``name`` says otherwise) of
     mixed-size JPEGs with 1-4 filled boxes each."""
@@ -1358,6 +1578,7 @@ def phase_train_vs_cpu(cfg_cls, build_model, train, report):
 def phase_train_full(cfg_cls, build_model, train, report):
     """The full-width train step at 608/b8, bfloat16 autocast over float32
     weights, Adam: timed, then a fresh model's loss over 30 steps."""
+    from yolov4_tpu_torch.ops import kernel_launches, launches_since
     from yolov4_tpu_torch.tools.profile_train import (forward_conv_flops,
                                                       random_batch)
     batch, size = 8, 608
@@ -1387,6 +1608,7 @@ def phase_train_full(cfg_cls, build_model, train, report):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n = 20
+    before = kernel_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1395,6 +1617,12 @@ def phase_train_full(cfg_cls, build_model, train, report):
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n
+    # a train step runs with autograd in training mode: none of the
+    # hand-written kernels
+    launches = launches_since(before)
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches in {n} train steps: "
+                             f"{launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     share = flops / (step_ms * 1e-3) / PEAK_BF16_OPS
     log(f"[train full] YOLOv4 {params:,} params, 608/b{batch}, bf16 "
@@ -1419,7 +1647,8 @@ def phase_train_full(cfg_cls, build_model, train, report):
     report["train_full"] = dict(
         params=params, batch=batch, img_size=size, step_ms=step_ms,
         img_s=batch * 1e3 / step_ms, peak_memory_gib=peak_gib,
-        train_tflop=flops / 1e12, flop_share_bf16=share, losses=losses)
+        train_tflop=flops / 1e12, flop_share_bf16=share, losses=losses,
+        kernel_launches_per_step={k: v // n for k, v in launches.items()})
 
 
 def fit_trainer(Trainer, raw, work, kernels, resume=None, hook=None):
@@ -2079,11 +2308,14 @@ def check_ddp_cli(work, rc, seconds, report):
         rows = [json.loads(line) for line in f]
     evals = [r for r in rows if r["kind"] == "eval"]
     n_val = -(-DDP_VAL_IMAGES // 8)
-    want = {"greedy_nms_mask": n_val, "fused_csp_stage": 3 * n_val}
+    # the eval BN and activation pass: every ConvBNAct with BN outside K2's
+    # stage bodies, 73 a PALLAS_CSP forward
+    want = {"greedy_nms_mask": n_val, "fused_csp_stage": 3 * n_val,
+            "batch_norm_act": 73 * n_val}
     if (not (out / "checkpoint.pth").exists() or len(evals) != 1
             or evals[0]["launches"] != want):
         raise AssertionError(f"torchrun train wrote {sorted(os.listdir(out))}"
-                             f", eval records {evals} (K1/K2 launches "
+                             f", eval records {evals} (kernel launches "
                              f"expected {want})\n{tail}")
     log(f"[ddp] torchrun --nproc_per_node 1 -m yolov4_tpu_torch.train "
         f"(NCCL), full width, 1 epoch of {DDP_TRAIN_IMAGES} images, "
@@ -5255,8 +5487,9 @@ def main() -> int:
     from yolov4_tpu_torch.engine.predictor import Predictor
     from yolov4_tpu_torch.engine.trainer import Trainer
     from yolov4_tpu_torch.models import build_model
-    from yolov4_tpu_torch.ops import csp_cuda, nms_cuda
+    from yolov4_tpu_torch.ops import bn_act_cuda, csp_cuda, nms_cuda
     from yolov4_tpu_torch.ops import postprocess as postprocess_mod
+    from yolov4_tpu_torch.ops.bn_act import batch_norm_act_plain
     from yolov4_tpu_torch.ops.csp import (fused_csp_stage_plain,
                                           kernel_widths, launch_plan)
     from yolov4_tpu_torch.ops.nms import greedy_nms_mask
@@ -5264,9 +5497,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     report = {}
-    build_kernels([nms_cuda, csp_cuda], report)
+    build_kernels([nms_cuda, csp_cuda, bn_act_cuda], report)
     k1_build_report(nms_cuda, report)
     k2_build_report(csp_cuda, kernel_widths, report)
+    bn_act_build_report(bn_act_cuda, report)
 
     err = phase_kernel_cases(nms_cuda, greedy_nms_mask, report)
 
@@ -5282,6 +5516,8 @@ def main() -> int:
     phase_k2_cases(csp_cuda, fused_csp_stage_plain, report)
     stages = phase_fused(Config, build_model, Predictor, csp_cuda,
                          fused_csp_stage_plain, launch_plan, report)
+    bn_sites = phase_bn_act(Config, build_model, Predictor, bn_act_cuda,
+                            batch_norm_act_plain, report)
     k2_launches = phase_val(val_mod, COCO_CLASS_IDS, nms_cuda, csp_cuda,
                             report)
     smi = subprocess.run(
@@ -5417,7 +5653,9 @@ def main() -> int:
                                         for r in stages) else "bytes",
         "library_ms": None,
         "library_note": "no single PyTorch call computes a CSP stage body; "
-                        "default_body_ms is the layer-by-layer path, "
+                        "default_body_ms is the default path's body, "
+                        "cuDNN's convolutions each followed by one "
+                        "batch_norm_act pass (BN and Mish), "
                         "cudnn_convs_ms cuDNN's convolutions alone",
         "default_body_ms": sum(r["default_body_ms"] for r in stages),
         "conv_launches_per_forward": sum(r["conv_launches"] for r in stages),
@@ -5426,6 +5664,39 @@ def main() -> int:
         "per_stage": stages,
         "per_stage_416": [r for r in report["serve_k2_416"]
                           if r["dtype"] == "bfloat16"],
+    }, {
+        # one entry for the three sites of BN_ACT_SITES in a 608/b64
+        # forward: times and bounds are their sums, per_site holds each
+        "name": "batch_norm_act",
+        "route": "cuda",
+        "source": "yolov4_tpu_torch/csrc/bn_act.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: XLA fuses BN and the activation "
+                         "into the conv; on the card it replaces the eager "
+                         "BatchNorm2d and activation passes after each "
+                         "eval conv of models/layers.ConvBNAct",
+        # a 608/b64 Predictor batch with and without PALLAS_CSP, and the
+        # 608/b8 train steps of phase 10
+        "launches_per_forward": {
+            k: v["batch_norm_act"]
+            for k, v in report["bn_act"]["launches"].items()},
+        "launches_per_train_step": report["train_full"][
+            "kernel_launches_per_step"]["batch_norm_act"],
+        "max_ulps_bf16": max(r["max_ulps_bf16"] for r in bn_sites),
+        "max_rel_err_f32": max(r["max_rel_err_f32"] for r in bn_sites),
+        "ms": sum(r["ms"] for r in bn_sites),
+        "device_ms": sum(r["device_ms"] for r in bn_sites),
+        "plain_ms": sum(r["plain_ms"] for r in bn_sites),
+        "bound_ms": sum(r["bound_ms"] for r in bn_sites),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes eval BN and Mish "
+                        "or leaky ReLU in one pass; chain_ms is the "
+                        "BatchNorm2d and activation passes that ConvBNAct "
+                        "runs where the kernel does not",
+        "chain_ms": sum(r["chain_ms"] for r in bn_sites),
+        "enqueue_us": report["bn_act"]["enqueue_us"],
+        "per_site": bn_sites,
     }], "library_products": [{
         # not a TPU kernel: the JAX package's int8 product is XLA's
         # conv_general_dilated (s8 x s8 -> s32), so the port calls

@@ -277,7 +277,8 @@ def test_overfit_run_learns_and_reports(tmp_path):
     assert r["final_loss"] < r["losses"][0][1]
     assert 0.0 <= r["ap"] <= r["ap50"] <= 1.0
     # the plain versions run on the CPU: no kernel launches
-    assert r["launches"] == {"greedy_nms_mask": 0, "fused_csp_stage": 0}
+    assert r["launches"] == {"greedy_nms_mask": 0, "fused_csp_stage": 0,
+                             "batch_norm_act": 0}
     assert r["quant"] == {}
 
 

@@ -17,6 +17,12 @@ after the base conv) through the K2 wrapper (ops/csp_cuda.py) with BN
 folded into the convs, as the JAX package's ``MODEL.PALLAS_CSP`` path
 does: the Hopper kernel on a CUDA tensor, its plain version on a CPU one.
 
+Every other ConvBNAct with BN and Mish or leaky ReLU runs BN and the
+activation of an eval forward without autograd on a CUDA tensor as one
+pass of the ``batch_norm_act`` kernel (ops/bn_act_cuda.py) after cuDNN's
+conv; training, autograd, int8 sites, the CPU, float16 and other layouts
+keep the layer-by-layer chain.
+
 Module attribute names follow the reference torch tree (darknet/darknet.py:
 14-138), so ``state_dict()`` keys are the reference's keys
 (``part2_1_2.0.conv.weight``, ``part2.1.module_list.0.1.norm.running_var``)
@@ -38,6 +44,9 @@ import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
+from yolov4_tpu_torch.ops.bn_act import mish
+from yolov4_tpu_torch.ops.bn_act_cuda import (batch_norm_act_cuda,
+                                              batch_norm_act_supported)
 from yolov4_tpu_torch.ops.csp import (fold_conv_bn, pack_weights,
                                       packed_dtype)
 from yolov4_tpu_torch.ops.csp_cuda import (fused_csp_stage_cuda,
@@ -51,21 +60,6 @@ from yolov4_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 
-def mish(x: torch.Tensor) -> torch.Tensor:
-    """Mish, x * tanh(softplus(x)), through the exact algebraic identity
-    tanh(ln(u)) = (u^2 - 1) / (u^2 + 1) with u = 1 + e^x:
-
-        mish(x) = x * a / (a + 2),  a = e^x (e^x + 2)
-
-    the same formula as the JAX package (one exp instead of three
-    transcendentals). For x > 20, a / (a + 2) == 1 to ~1e-17: clamp to
-    avoid exp overflow and return x, mish's exact asymptote.
-    """
-    e = torch.exp(torch.clamp(x, max=20.0))
-    a = e * (e + 2.0)
-    return torch.where(x > 20.0, x, x * a / (a + 2.0))
-
-
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
 
@@ -76,6 +70,10 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "mish": mish,
     "linear": lambda x: x,
 }
+# the activations the batch_norm_act kernel computes, by function: a site
+# whose ``act`` was swapped (tools/act_bound.py) takes the swapped one
+FUSED_ACTIVATIONS: Dict[Callable, str] = {mish: "mish",
+                                          leaky_relu: "leaky_relu"}
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -276,9 +274,22 @@ class ConvBNAct(nn.Module):
             if not self.quant_u8:
                 return self._forward_int8(x)
         x = self.conv(x)
+        if self._fuses_bn_act(x):
+            return batch_norm_act_cuda(x, self.norm,
+                                       FUSED_ACTIVATIONS[self.act])
         if self.norm is not None:
             x = self.norm(x)
         return self.act(x)
+
+    def _fuses_bn_act(self, x: torch.Tensor) -> bool:
+        """Whether BN and the activation after the conv run as one pass of
+        the batch_norm_act kernel: an eval forward without autograd (K2's
+        predicate, ``_CSPStage._use_fused``) of a float site with BN and
+        Mish or leaky ReLU, on a CUDA tensor the kernel takes."""
+        return (not self.training and not torch.is_grad_enabled()
+                and self.quant == "none" and self.norm is not None
+                and self.act in FUSED_ACTIVATIONS and x.is_cuda
+                and batch_norm_act_supported(x, self.norm))
 
     @torch.no_grad()
     def quantized_weights(self):

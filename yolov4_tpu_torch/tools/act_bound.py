@@ -18,8 +18,12 @@ cheaper Mish (an approximation, a table) can save more than replacing it
 by a select. A probe, not a model option: leaky for Mish changes the
 numerics entirely. With ``--pallas-csp`` the bodies of CSP stages 1-3 run
 in K2, whose Mish stays: only the sites outside K2 are swapped, and the
-count is printed. Prints one JSON line last. With ``--device cpu`` the
-times are the host's (plumbing only).
+count is printed. On a card every eval ConvBNAct with BN runs BN and its
+activation as one pass of the batch_norm_act kernel (ops/bn_act_cuda.py),
+Mish and leaky alike, at the same bytes: the ceiling now concerns only
+the Mish sites left outside that pass (those without BN, int8 sites,
+inputs the kernel does not take). Prints one JSON line last. With
+``--device cpu`` the times are the host's (plumbing only).
 """
 
 from __future__ import annotations
