@@ -14,7 +14,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from portbench.reference.model import build, conv_shapes
+from portbench import reference
+from portbench.reference.model import conv_shapes
 
 # NVIDIA H100 SXM data sheet, dense: bfloat16 tensor cores, float32
 # outside them, HBM3
@@ -29,12 +30,11 @@ NMS_OPS_PER_PAIR = 14
 NMS_OPS_PER_BOX = 3
 
 
-def forward_conv_flops(kind: str, n_classes: int, batch: int,
-                       size: int) -> float:
+def forward_conv_flops(config: Dict, batch: int, size: int) -> float:
     """FLOPs (2 a multiply-add) of every conv of one forward of the
-    configuration's model on [batch, 3, size, size]."""
+    configuration's reference model on [batch, 3, size, size]."""
     with torch.device("meta"):
-        model = build(kind, n_classes)
+        model = reference.build(config)
     return float(sum(2 * out * per for out, per in
                      conv_shapes(model, (batch, 3, size, size))))
 

@@ -18,11 +18,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench import check, weights
+from portbench import check, reference, weights
 from portbench.drivers import Driver as Base
 from portbench.drivers import program_cfg
 from portbench.reference.detect import postprocess as ref_postprocess
-from portbench.reference.model import build
 from portbench.reference.train import tf32_off
 from portbench.trace import Tracer
 
@@ -46,14 +45,11 @@ class Driver(Base):
             t = self._part("kernels", t)
         tr, cf = self.traffic, self.config
         self.batch, self.size = int(tr["batch"]), int(tr["img_size"])
-        self.kind, self.n_classes = cf["model"], int(cf["n_classes"])
-        width, depth = cf.get("width", 1.0), cf.get("depth", 1.0)
-        state = weights.make_weights(self.kind, self.n_classes, self.seed,
-                                     self.device, width, depth)
+        self.n_classes = int(cf["n_classes"])
+        state = weights.make_weights(cf, self.seed, self.device)
         pool = weights.detect_pool(self.seed, int(tr["pool"]), self.batch,
                                    self.size, self.device)
-        weights.calibrate(self.kind, self.n_classes, state,
-                          pool[0, :min(BLOCK, self.batch)], width, depth)
+        weights.calibrate(cf, state, pool[0, :min(BLOCK, self.batch)])
         self.host_pool = [b.numpy() for b in pool.cpu()]
         self.state = {k: v.cpu() for k, v in state.items()}
         del pool, state
@@ -135,9 +131,7 @@ class Driver(Base):
         n_pool = len(self.host_pool)
         per_image = {}
         with torch.device("meta"):
-            model = build(self.kind, self.n_classes,
-                          self.config.get("width", 1.0),
-                          self.config.get("depth", 1.0))
+            model = reference.build(self.config)
         model = model.to_empty(device=self.device)
         model.load_state_dict(self.state)
         model.eval()

@@ -76,12 +76,11 @@ class Driver(Base):
     def setup(self) -> None:
         t = time.perf_counter()
         cf = self.config
-        self.kind, self.n_classes = cf["model"], int(cf["n_classes"])
+        self.n_classes = int(cf["n_classes"])
         self.batch = int(self.traffic["batch"])
         self.size = int(self.traffic["img_size"])
         width, depth = cf.get("width", 1.0), cf.get("depth", 1.0)
-        state = weights.make_weights(self.kind, self.n_classes, self.seed,
-                                     self.device, width, depth)
+        state = weights.make_weights(cf, self.seed, self.device)
         self.images, self.labels = self.pool()
         t = self._part("weights", t)
         self.model, step, self.optimizer = self.program(width, depth)
@@ -161,10 +160,8 @@ class Driver(Base):
         """The reference (or, with ``mode`` "fp8", the control) through the
         checked steps, from the same weights on the same batches."""
         with tf32_off():
-            ref = RefSteps(self.kind, self.n_classes, self.state_cpu,
-                           self.device, self.lr_fn(), self.start_step(),
-                           mode, self.config.get("width", 1.0),
-                           self.config.get("depth", 1.0))
+            ref = RefSteps(self.config, self.state_cpu, self.device,
+                           self.lr_fn(), self.start_step(), mode)
             before = {k: v.detach().clone() for k, v in
                       ref.parameters().items()}
             losses = []

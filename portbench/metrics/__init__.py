@@ -58,8 +58,7 @@ def mfu(ctx: Context, passes: float) -> Optional[float]:
     n = images(ctx)
     if not n:
         return None
-    flops = counts.forward_conv_flops(ctx.config["model"],
-                                      int(ctx.config["n_classes"]), 1,
+    flops = counts.forward_conv_flops(ctx.config, 1,
                                       int(ctx.traffic["img_size"]))
     return 100.0 * passes * flops * n / ctx.driver.window_s \
         / counts.PEAK_BF16_FLOPS

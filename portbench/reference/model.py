@@ -18,6 +18,10 @@ it sees (the benchmark's weight maker uses it).
 to float8 e4m3 (per-tensor scaled) and the gradient of its output to
 float8 e5m2, computing in float32 otherwise: the control one precision
 below the program's bfloat16.
+
+The module meets the reference contract (portbench/reference/__init__.py):
+``build``, ``calibrate_bn``, ``precision``, ``model_input``, ``loss``. A
+reference module of another architecture imports its layers from here.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ ANCHOR_MASK = ((0, 1, 2), (3, 4, 5), (6, 7, 8))
 
 # largest finite values of the two float8 formats
 _FP8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
+
+IMAGENET_MEAN = (0.485 * 255.0, 0.456 * 255.0, 0.406 * 255.0)
+IMAGENET_STD = (0.229 * 255.0, 0.224 * 255.0, 0.225 * 255.0)
 
 
 def fp8_round(x: torch.Tensor, dtype=torch.float8_e4m3fn) -> torch.Tensor:
@@ -404,6 +411,26 @@ def build(kind: str, n_classes: int, width: float = 1.0,
     if kind == "cspdarknet53":
         return CSPDarknet53(n_classes, width, depth)
     raise ValueError(f"no reference model {kind!r}")
+
+
+def model_input(kind: str, images: torch.Tensor) -> torch.Tensor:
+    """NHWC batch -> NCHW float32: the detector takes images in [0, 1] as
+    they are, the classifier uint8 normalized by the ImageNet statistics."""
+    if kind == "cspdarknet53":
+        mean = torch.tensor(IMAGENET_MEAN, device=images.device)
+        std = torch.tensor(IMAGENET_STD, device=images.device)
+        return ((images.float() - mean) / std).permute(0, 3, 1, 2)
+    return images.float().permute(0, 3, 1, 2)
+
+
+def loss(kind: str, out, labels: torch.Tensor) -> torch.Tensor:
+    """The train step's loss of the train-mode output: the YOLO loss for
+    the detector, the smoothed cross-entropy for the classifier."""
+    # imported here: loss.py takes the anchors from this module
+    from portbench.reference.loss import smoothed_ce, yolo_loss
+    if kind == "yolov4":
+        return yolo_loss(out, labels)
+    return smoothed_ce(out, labels)
 
 
 def precision(model: nn.Module, mode: str) -> nn.Module:

@@ -1,7 +1,7 @@
 """The train steps in plain PyTorch: forward in train mode, the loss,
 backward and Adam (betas 0.9 / 0.999, eps 1e-8, no weight decay: the
 program's optimizer for both configurations), in float32 with TF32 off,
-or in the fp8 control (model.precision).
+or in the fp8 control (the reference module's ``precision``).
 
 Each BatchNorm normalizes with its batch's statistics; the model
 recomputes each stage in the backward (activation checkpointing) so that
@@ -16,21 +16,7 @@ from typing import Callable, Dict, Iterator, List
 
 import torch
 
-from portbench.reference.loss import smoothed_ce, yolo_loss
-from portbench.reference.model import build, precision
-
-IMAGENET_MEAN = (0.485 * 255.0, 0.456 * 255.0, 0.406 * 255.0)
-IMAGENET_STD = (0.229 * 255.0, 0.224 * 255.0, 0.225 * 255.0)
-
-
-def model_input(kind: str, images: torch.Tensor) -> torch.Tensor:
-    """NHWC batch -> NCHW float32: the detector takes images in [0, 1] as
-    they are, the classifier uint8 normalized by the ImageNet statistics."""
-    if kind == "cspdarknet53":
-        mean = torch.tensor(IMAGENET_MEAN, device=images.device)
-        std = torch.tensor(IMAGENET_STD, device=images.device)
-        return ((images.float() - mean) / std).permute(0, 3, 1, 2)
-    return images.float().permute(0, 3, 1, 2)
+from portbench import reference
 
 
 class Adam:
@@ -55,20 +41,19 @@ class Adam:
 
 
 class RefSteps:
-    """The reference's model, loss and Adam from ``state_dict``; ``step``
-    runs one update and returns the loss and the gradients, by parameter
-    name."""
+    """The configuration's reference model (its ``reference`` module), its
+    input, loss and Adam from ``state_dict``; ``step`` runs one update and
+    returns the loss and the gradients, by parameter name."""
 
-    def __init__(self, kind: str, n_classes: int, state_dict: Dict,
-                 device, lr: Callable[[int], float], start_step: int,
-                 mode: str = "float32", width: float = 1.0,
-                 depth: float = 1.0):
-        self.kind = kind
+    def __init__(self, config: Dict, state_dict: Dict, device,
+                 lr: Callable[[int], float], start_step: int,
+                 mode: str = "float32"):
+        self.ref, self.kind = reference.module(config), config["model"]
         with torch.device("meta"):
-            model = build(kind, n_classes, width, depth)
+            model = reference.build(config)
         self.model = model.to_empty(device=device)
         self.model.load_state_dict(state_dict)
-        precision(self.model, mode).train()
+        self.ref.precision(self.model, mode).train()
         self.model.checkpointed = True
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
@@ -76,12 +61,8 @@ class RefSteps:
         self.lr, self.global_step = lr, start_step
 
     def step(self, images: torch.Tensor, labels: torch.Tensor):
-        x = model_input(self.kind, images)
-        out = self.model(x)
-        if self.kind == "yolov4":
-            loss = yolo_loss(out, labels)
-        else:
-            loss = smoothed_ce(out, labels)
+        out = self.model(self.ref.model_input(self.kind, images))
+        loss = self.ref.loss(self.kind, out, labels)
         grads = torch.autograd.grad(loss, self.params)
         self.adam.step(list(grads), self.lr(self.global_step))
         self.global_step += 1

@@ -19,6 +19,12 @@ def bench():
         return json.load(f)
 
 
+def config(name):
+    """The configuration file ``portbench/configs/<name>.json``."""
+    with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
+        return json.load(f)
+
+
 def small_root(tmp_path):
     """A root holding BENCHMARK.json and every configuration and traffic
     cut to the CPU's size."""

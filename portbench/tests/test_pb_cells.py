@@ -6,8 +6,9 @@ import os
 import re
 
 import pytest
+import torch
 
-from portbench import drivers, faults
+from portbench import drivers, faults, reference
 from portbench.tests.pb_small import ROOT, bench
 
 B = bench()
@@ -83,6 +84,19 @@ def test_each_metric_lists_cells_that_report_what_it_moves():
     for m in B["per_layer"]:
         moved = e2e[m["moves"]]
         assert set(m["workloads"]) <= set(moved.get("workloads", CELLS))
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in B["configs"]])
+def test_config_names_a_reference_that_meets_the_contract(name):
+    entry = next(c for c in B["configs"] if c["name"] == name)
+    cf = _load(entry["file"])
+    mod = reference.module(cf)
+    assert os.path.samefile(mod.__file__, os.path.join(ROOT, cf["reference"]))
+    assert all(callable(getattr(mod, f)) for f in reference.CONTRACT)
+    with torch.device("meta"):
+        model = reference.build(cf)
+    if "parameters" in cf:
+        assert sum(p.numel() for p in model.parameters()) == cf["parameters"]
 
 
 def test_every_config_is_used():

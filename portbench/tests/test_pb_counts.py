@@ -5,6 +5,7 @@ import torch
 
 from portbench import counts
 from portbench.reference.model import conv_shapes
+from portbench.tests.pb_small import config as _config
 
 
 def test_one_conv_from_shapes():
@@ -49,12 +50,13 @@ def test_k1_at_64x2048():
 
 def test_yolov4_608_forward_near_134_gflop():
     # PR 5's 3.226 TFLOP a 608/b8 train step is 3 x 8 x 134.4 GFLOP
-    assert counts.forward_conv_flops("yolov4", 80, 1, 608) / 1e9 == \
+    cf = _config("yolov4-608")
+    assert counts.forward_conv_flops(cf, 1, 608) / 1e9 == \
         pytest.approx(134.42, abs=0.01)
-    assert counts.forward_conv_flops("yolov4", 80, 2, 608) == \
-        pytest.approx(2 * counts.forward_conv_flops("yolov4", 80, 1, 608))
+    assert counts.forward_conv_flops(cf, 2, 608) == \
+        pytest.approx(2 * counts.forward_conv_flops(cf, 1, 608))
 
 
 def test_classifier_256_forward():
-    assert counts.forward_conv_flops("cspdarknet53", 1000, 1, 256) / 1e9 \
-        == pytest.approx(13.07, abs=0.01)
+    assert counts.forward_conv_flops(_config("cspdarknet53-256"), 1, 256) \
+        / 1e9 == pytest.approx(13.07, abs=0.01)

@@ -14,16 +14,19 @@ whose box, objectness and class channels spread, with an objectness bias
 of -2 so that a minority of anchors score high. For detection each
 BatchNorm's running statistics are then set from a calibration batch by
 the reference model in float32 (reference.model.calibrate_bn), so that
-every layer of the eval forward normalizes what it is given.
+every layer of the eval forward normalizes what it is given. The model
+is the configuration's reference (portbench/reference/__init__.py), so a
+new architecture keeps these rules where it keeps the names: its heads'
+output convs ``head.<x>.1.conv``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from portbench.reference.model import build, calibrate_bn
+from portbench import reference
 from portbench.reference.train import tf32_off
 
 # channel factors of a head output conv, per anchor: x, y, w, h, obj, cls
@@ -40,9 +43,12 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
     return g
 
 
-def named_shapes(kind: str, n_classes: int, width=1.0, depth=1.0):
+def named_shapes(config: Dict, width: Optional[float] = None,
+                 depth: Optional[float] = None):
+    """(name, shape, dtype) of each entry of the configuration's reference
+    ``state_dict``, at the file's width and depth unless given."""
     with torch.device("meta"):
-        model = build(kind, n_classes, width, depth)
+        model = reference.build(config, width, depth)
     return [(n, tuple(t.shape), t.dtype) for n, t in
             model.state_dict().items()]
 
@@ -54,11 +60,13 @@ def _head_scale(shape, n_classes: int, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def make_weights(kind: str, n_classes: int, seed: int, device,
-                 width=1.0, depth=1.0) -> Dict[str, torch.Tensor]:
+def make_weights(config: Dict, seed: int, device,
+                 width: Optional[float] = None,
+                 depth: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """A state_dict (float32, on ``device``) in the reference's keys, which
     are the program's."""
-    shapes = named_shapes(kind, n_classes, width, depth)
+    n_classes = int(config["n_classes"])
+    shapes = named_shapes(config, width, depth)
     floats = [(n, s) for n, s, dt in shapes if dt.is_floating_point]
     total = sum(int(torch.Size(s).numel()) for _, s in floats)
     g = generator(seed, 0, device)
@@ -105,16 +113,18 @@ def make_weights(kind: str, n_classes: int, seed: int, device,
 
 
 @torch.no_grad()
-def calibrate(kind: str, n_classes: int, state: Dict[str, torch.Tensor],
-              images_u8: torch.Tensor, width=1.0, depth=1.0) -> None:
+def calibrate(config: Dict, state: Dict[str, torch.Tensor],
+              images_u8: torch.Tensor, width: Optional[float] = None,
+              depth: Optional[float] = None) -> None:
     """Set ``state``'s BatchNorm running statistics in place from the
     reference's float32 eval forward on uint8 NHWC ``images_u8``."""
     with torch.device("meta"):
-        model = build(kind, n_classes, width, depth)
+        model = reference.build(config, width, depth)
     model = model.to_empty(device=images_u8.device)
     model.load_state_dict(state)
     with tf32_off():
-        calibrate_bn(model, images_u8.permute(0, 3, 1, 2).float() / 255.0)
+        reference.module(config).calibrate_bn(
+            model, images_u8.permute(0, 3, 1, 2).float() / 255.0)
     for name, t in model.state_dict().items():
         state[name].copy_(t)
 
